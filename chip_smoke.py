@@ -6,25 +6,36 @@
 Phases, in order; any failure raises and exits non-zero:
 
 1. Device: requires ``torch.cuda.is_available()``, prints the card's
-   name and power limit (nvidia-smi), builds both CUDA kernels from
-   ``viterbidecodercpp_torch/csrc`` with nvcc for sm_90a (into
-   ``viterbidecodercpp_torch/_build/``) and prints the build time.
+   name and power limit (nvidia-smi), builds all five CUDA kernels from
+   ``viterbidecodercpp_torch/csrc`` with nvcc for sm_90a, one nvcc
+   process per source, all started together (into
+   ``viterbidecodercpp_torch/_build/``), and prints the build times.
 2. Kernel vs plain on the card, bit-exact: the rotated ACS kernel
    against its plain version for the five rotated-class registry codes x
    SOFT16/SOFT8/HARD8 x saturating/wrapping at B=64, T=301, plus a
    random K=13 R=1/2 code (S=4096); the walk kernel against its plain
    version on the same rows, slot order with streamed rotations.
-3. The main path at full size: Voyager K=7 R=1/2 SOFT8, B=1024 frames x
-   2048 trellis steps (2042 random data bits + 6 tail bits per frame),
-   encoded on the card, mild numpy noise, decoded by
+2b. The same for the plane class: the plane ACS kernel on Cassini x the
+   three regimes x both arithmetic modes and random K=14, K=16 and K=17
+   R=1/2 codes at B=20, T=301 from off-reset metrics (metrics, packed rows,
+   acc); on those rows the frame-major walk with random rotations and a
+   valid mask, and the truncated walk at block=64/overlap=96 and at its
+   defaults.
+3. The flagship path at full size: Voyager K=7 R=1/2 SOFT8, B=1024
+   frames x 2048 trellis steps (2042 random data bits + 6 tail bits per
+   frame), encoded on the card, mild numpy noise, decoded by
    ``ViterbiDecoder(...).decode`` on CUDA tensors.  Every frame must
    decode exactly, both kernels must have launched, and bits, final
    metrics and acc must equal the plain state-order scan
    (ops/torch_core.py) run on the card.  Repeated through reset + three
    ragged updates + chainback.
-4. Times on the card (CUDA events, warm-up, median of 7): each kernel
-   and its plain version at the main-path shape, and the whole decode
-   in decoded symbols/s (B*T*R / s).
+3b. The big-state path at full size: Cassini K=15 R=1/6 SOFT16, B=512
+   frames x 2062 trellis steps (2048 data bits + 14 tail bits), the same
+   checks, plus ``chainback(mode="truncated")`` at its defaults equal to
+   the exact bits; all three plane kernels must have launched.
+4. Times on the card (CUDA events, warm-up, median): each kernel and its
+   plain version at its path's full-size shape, and each whole decode in
+   decoded symbols/s (B*T*R / s).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is a JSON object with one entry per kernel.  Imports nothing of JAX.
@@ -38,6 +49,7 @@ import statistics
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -46,6 +58,20 @@ ROTATED_CODES = ("Voyager", "LTE", "DAB Radio", "CDMA IS-95A", "CDMA 2000")
 MODES = ("SOFT16", "SOFT8", "HARD8")
 ARITHS = ("saturating", "wrapping")
 REPS = 7
+PLAIN_REPS = 3
+# kernel -> (source, the TPU kernel it replaces)
+KERNELS = {
+    "rotated_acs": ("viterbidecodercpp_torch/csrc/rotated_acs.cu",
+                    "viterbidecodercpp_tpu/ops/rotated_pallas.py:209"),
+    "chainback": ("viterbidecodercpp_torch/csrc/chainback.cu",
+                  "viterbidecodercpp_tpu/ops/chainback_pallas.py:60"),
+    "plane_acs": ("viterbidecodercpp_torch/csrc/plane_acs.cu",
+                  "viterbidecodercpp_tpu/ops/bigstate_pallas.py:119"),
+    "plane_walk": ("viterbidecodercpp_torch/csrc/plane_walk.cu",
+                   "viterbidecodercpp_tpu/ops/bigstate_pallas.py:535"),
+    "plane_walk_trunc": ("viterbidecodercpp_torch/csrc/plane_walk_trunc.cu",
+                         "viterbidecodercpp_tpu/ops/bigstate_pallas.py:713"),
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -66,13 +92,13 @@ def max_abs_diff(a: torch.Tensor, b: torch.Tensor) -> int:
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
 
 
-def time_ms(fn) -> float:
-    """Median CUDA-event time of REPS calls after two warm-up calls."""
-    for _ in range(2):
+def time_ms(fn, reps: int = REPS, warmup: int = 2) -> float:
+    """Median CUDA-event time of ``reps`` calls after ``warmup`` calls."""
+    for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(REPS):
+    for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -146,6 +172,77 @@ def phase2(pt, torch_core, rotated, chainback, dev, rng) -> dict:
           flush=True)
     return err
 
+def random_code(pt, K: int, rng):
+    G = tuple(int(rng.randint(0, 1 << K)) | 1 | (1 << (K - 1))
+              for _ in range(2))
+    return pt.CodeSpec(f"random K={K} R=1/2 G={G}", K, G)
+
+
+def phase2b(pt, torch_core, plane, dev, rng) -> dict:
+    """Plane kernels vs plain at B=20, T=301 across the class; returns
+    the largest difference seen per kernel (0 when bit-exact)."""
+    err = {"plane_acs": 0, "plane_walk": 0, "plane_walk_trunc": 0}
+    code = pt.get_code("Cassini")
+    specs = []
+    for mode in MODES:
+        for arith in ARITHS:
+            cfg = pt.get_decode_config(pt.DecodeType(mode), code.R,
+                                       arith=arith)
+            specs.append((f"Cassini {mode} {arith}",
+                          torch_core.make_static_spec(code, cfg)))
+    for K in (14, 16, 17):
+        c = random_code(pt, K, rng)
+        specs.append((f"{c.name} SOFT8 saturating",
+                      torch_core.make_static_spec(
+                          c, pt.get_decode_config(pt.DecodeType.SOFT8, 2))))
+    B, T = 20, 301
+    for i, (label, spec) in enumerate(specs):
+        n = spec.K - 1
+        # symbols past the soft range exercise the wrapper's clamp
+        syms = torch.as_tensor(
+            rng.randint(spec.soft_low - 2, spec.soft_high + 3,
+                        (B, T, spec.R)).astype(np.int32), device=dev)
+        m0 = torch_core.initial_metrics(spec, B, 0, dev)
+        m0 = torch.minimum(m0, torch.as_tensor(
+            rng.randint(0, spec.metric_max + 1, m0.shape).astype(np.int32),
+            device=dev))
+        phase0 = i % n
+        got = plane.acs_plane(spec, m0, syms, phase0=phase0)
+        torch.cuda.synchronize()
+        want = plane.acs_plane_ref(spec, m0, syms, phase0=phase0)
+        e = max(max_abs_diff(g, w) for g, w in zip(got, want))
+        err["plane_acs"] = max(err["plane_acs"], e)
+        require(e == 0, f"plane ACS kernel != plain for {label} (max abs "
+                        f"diff {e})")
+        packed = got[1]
+        start = torch.as_tensor(rng.randint(0, spec.S, B).astype(np.int32),
+                                device=dev)
+        rots = torch.as_tensor(rng.randint(0, n, T).astype(np.int32),
+                               device=dev)
+        valid = torch.as_tensor((rng.rand(T) > 0.2).astype(np.int32),
+                                device=dev)
+        walk = plane.walk_plane_frames(spec, packed, start, rots=rots,
+                                       valid=valid)
+        torch.cuda.synchronize()
+        e = max_abs_diff(walk, plane.walk_plane_frames_ref(
+            spec, packed, start, rots=rots, valid=valid))
+        err["plane_walk"] = max(err["plane_walk"], e)
+        require(e == 0, f"plane walk kernel != plain for {label}")
+        for blk, ov in ((64, 96), (512, 128)):
+            tr = plane.chainback_plane_truncated(spec, packed, start, T - n,
+                                                 rots, blk, ov)
+            torch.cuda.synchronize()
+            e = max_abs_diff(tr, plane.chainback_plane_truncated_ref(
+                spec, packed, start, T - n, rots, blk, ov))
+            err["plane_walk_trunc"] = max(err["plane_walk_trunc"], e)
+            require(e == 0, f"truncated walk kernel != plain for {label} "
+                            f"block={blk} overlap={ov}")
+    print(f"phase2b ok: {len(specs)} plane specs at B={B} T={T}, kernel == "
+          f"plain bit-for-bit (ACS metrics/rows/acc at phase0 = i mod n, "
+          f"frame-major walk with rots and valid, truncated walk at "
+          f"64/96 and 512/128)", flush=True)
+    return err
+
 
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -156,7 +253,7 @@ def main() -> None:
                          "this run needs a CUDA card")
     import viterbidecodercpp_torch as pt
     from viterbidecodercpp_torch.ops import (_build, chainback, encoder,
-                                             rotated, torch_core)
+                                             plane, rotated, torch_core)
 
     dev = torch.device("cuda", 0)
     rng = np.random.RandomState(args.seed)
@@ -167,16 +264,20 @@ def main() -> None:
     print(f"phase1 torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)} x "
           f"{torch.cuda.device_count()}", flush=True)
-    for name in ("rotated_acs", "chainback"):
-        t0 = time.perf_counter()
-        _build.load(name)
-        print(f"phase1 built {name}: nvcc {_build.build_seconds[name]:.2f} s, "
-              f"load {time.perf_counter() - t0:.2f} s", flush=True)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        list(pool.map(_build.load, KERNELS))
+    for name in KERNELS:
+        print(f"phase1 built {name}: nvcc {_build.build_seconds[name]:.2f} s",
+              flush=True)
+    print(f"phase1 all {len(KERNELS)} kernels built and loaded in "
+          f"{time.perf_counter() - t0:.2f} s (parallel nvcc)", flush=True)
 
-    # -- phase 2: kernels vs plain across the class ---------------------
+    # -- phase 2: kernels vs plain across each class --------------------
     err = phase2(pt, torch_core, rotated, chainback, dev, rng)
+    err.update(phase2b(pt, torch_core, plane, dev, rng))
 
-    # -- phase 3: the main path at full size ----------------------------
+    # -- phase 3: the flagship path at full size ------------------------
     code = pt.get_code("Voyager")
     B, N = 1024, 2042
     T = N + code.K - 1
@@ -222,6 +323,64 @@ def main() -> None:
           f"updates of {np.diff(cuts).tolist()} steps agree; launches "
           f"{launches}",
           flush=True)
+    del ref_p
+
+    # -- phase 3b: the big-state path at full size ----------------------
+    big = pt.get_code("Cassini")
+    Bb, Nb = 512, 2048
+    Tb = Nb + big.K - 1
+    Rb = big.R
+    data_b = torch.as_tensor(rng.randint(0, 2, (Bb, Nb)).astype(np.uint8),
+                             device=dev)
+    clean = encoder.encode_symbols(big, data_b, 127, -127).cpu().numpy()
+    # mild noise: every symbol keeps its sign, so the decode is exact
+    noisy = np.clip(clean + rng.randint(-60, 61, clean.shape), -127, 127)
+    syms_b = torch.as_tensor(noisy.reshape(Bb, Tb * Rb).astype(np.int32),
+                             device=dev)
+    dec_b = pt.ViterbiDecoder(big, "SOFT16", device=dev)
+    require(dec_b.backend == "plane", f"Cassini took the {dec_b.backend} "
+                                      f"backend on the card")
+    for name in plane.LAUNCHES:
+        plane.LAUNCHES[name] = 0
+    bits_b, final_err_b, acc_b = dec_b.decode(syms_b, Nb)
+    state_b = dec_b.reset(Bb)
+    cuts_b = (0, 701, 1402, Tb)        # chunk lengths not multiples of n
+    for lo, hi in zip(cuts_b[:-1], cuts_b[1:]):
+        state_b = dec_b.update(state_b, syms_b[:, lo * Rb:hi * Rb])
+    ragged_b = dec_b.chainback(state_b, Nb)
+    trunc_b = dec_b.chainback(state_b, Nb, mode="truncated")
+    torch.cuda.synchronize()
+    launches.update(plane.LAUNCHES)
+    for name in plane.LAUNCHES:
+        require(launches[name] > 0,
+                f"big-state path did not launch the {name} kernel")
+    exact_b = int((bits_b == data_b).all(dim=1).sum())
+    require(exact_b == Bb, f"only {exact_b} of {Bb} Cassini frames decoded "
+                           f"exactly")
+    spec_b = dec_b.spec
+    m0_b = torch_core.initial_metrics(spec_b, Bb, 0, dev)
+    syms3_b = syms_b.reshape(Bb, Tb, Rb)
+    ref_m, ref_p, ref_acc = torch_core.acs_scan(spec_b, m0_b, syms3_b)
+    ref_bits = torch_core.chainback_scan(
+        spec_b, ref_p, torch.zeros(Bb, dtype=torch.int32, device=dev), Nb)
+    del ref_p
+    require(torch.equal(bits_b, ref_bits), "Cassini bits != plain scan")
+    require(torch.equal(final_err_b, ref_m[0]),
+            "Cassini final error != plain scan")
+    require(torch.equal(acc_b, ref_acc), "Cassini acc != plain scan")
+    require(torch.equal(ragged_b, ref_bits),
+            "Cassini ragged-update bits != plain")
+    require(torch.equal(state_b.metrics, ref_m),
+            "Cassini ragged metrics != plain")
+    require(torch.equal(state_b.accumulated_error, ref_acc),
+            "Cassini ragged acc != plain")
+    require(torch.equal(trunc_b, ragged_b),
+            "Cassini truncated chainback != exact chainback")
+    print(f"phase3b ok: Cassini SOFT16 B={Bb} T={Tb}: {exact_b}/{Bb} frames "
+          f"exact; bits, final metrics and acc == plain state-order scan; "
+          f"ragged updates of {np.diff(cuts_b).tolist()} steps agree; "
+          f"truncated chainback (block 512, overlap 128) == exact; launches "
+          f"{ {k: launches[k] for k in plane.LAUNCHES} }", flush=True)
 
     # -- phase 4: times on the card --------------------------------------
     ends = torch.zeros(B, dtype=torch.int32, device=dev)
@@ -251,29 +410,69 @@ def main() -> None:
     }
     decode_ms = time_ms(lambda: dec.decode(syms, N))
     rate = B * T * code.R / (decode_ms / 1e3)
-    for name in ms:
-        print(f"phase4 {name}: kernel {ms[name]:.4f} ms, plain "
-              f"{plain_ms[name]:.4f} ms (B={B} T={T}, median of {REPS}) "
-              f"on {card}", flush=True)
+    del k_out, p_out
+
+    # -- phase 4b: the plane kernels at the big-state path's shape --------
+    ends_b = torch.zeros(Bb, dtype=torch.int32, device=dev)
+    k_out = plane.acs_plane(spec_b, m0_b, syms3_b)
+    p_out = plane.acs_plane_ref(spec_b, m0_b, syms3_b)
+    e = max(max_abs_diff(g, w) for g, w in zip(k_out, p_out))
+    require(e == 0, "plane ACS kernel != plain at the big-state shape")
+    err["plane_acs"] = max(err["plane_acs"], e)
+    del p_out
+    rows_b = k_out[1]
+    e = max_abs_diff(plane.walk_plane_frames(spec_b, rows_b, ends_b),
+                     plane.walk_plane_frames_ref(spec_b, rows_b, ends_b))
+    require(e == 0, "plane walk kernel != plain at the big-state shape")
+    err["plane_walk"] = max(err["plane_walk"], e)
+    e = max_abs_diff(
+        plane.chainback_plane_truncated(spec_b, rows_b, ends_b, Nb),
+        plane.chainback_plane_truncated_ref(spec_b, rows_b, ends_b, Nb))
+    require(e == 0, "truncated walk kernel != plain at the big-state shape")
+    err["plane_walk_trunc"] = max(err["plane_walk_trunc"], e)
+    ms["plane_acs"] = time_ms(
+        lambda: plane.acs_plane(spec_b, m0_b, syms3_b))
+    ms["plane_walk"] = time_ms(
+        lambda: plane.walk_plane_frames(spec_b, rows_b, ends_b))
+    ms["plane_walk_trunc"] = time_ms(
+        lambda: plane.chainback_plane_truncated(spec_b, rows_b, ends_b, Nb))
+    plain_ms["plane_acs"] = time_ms(
+        lambda: plane.acs_plane_ref(spec_b, m0_b, syms3_b), PLAIN_REPS, 1)
+    plain_ms["plane_walk"] = time_ms(
+        lambda: plane.walk_plane_frames_ref(spec_b, rows_b, ends_b),
+        PLAIN_REPS, 1)
+    plain_ms["plane_walk_trunc"] = time_ms(
+        lambda: plane.chainback_plane_truncated_ref(spec_b, rows_b, ends_b,
+                                                    Nb), PLAIN_REPS, 1)
+    decode_ms_b = time_ms(lambda: dec_b.decode(syms_b, Nb))
+    rate_b = Bb * Tb * Rb / (decode_ms_b / 1e3)
+    shapes = {"rotated_acs": f"Voyager SOFT8 B={B} T={T}",
+              "chainback": f"Voyager SOFT8 B={B} T={T}",
+              "plane_acs": f"Cassini SOFT16 B={Bb} T={Tb}",
+              "plane_walk": f"Cassini SOFT16 B={Bb} T={Tb}",
+              "plane_walk_trunc": f"Cassini SOFT16 B={Bb} T={Tb}, "
+                                  f"block 512 overlap 128"}
+    for name in KERNELS:
+        plain_reps = PLAIN_REPS if name.startswith("plane") else REPS
+        print(f"phase4 {name}: kernel {ms[name]:.4f} ms (median of {REPS}), "
+              f"plain {plain_ms[name]:.4f} ms (median of {plain_reps}), "
+              f"{shapes[name]}, on {card}", flush=True)
     print(f"phase4 decode: {decode_ms:.4f} ms = {rate:.4e} decoded "
           f"symbols/s (B*T*R / s, Voyager SOFT8 B={B} T={T}) on {card}",
+          flush=True)
+    print(f"phase4 decode: {decode_ms_b:.4f} ms = {rate_b:.4e} decoded "
+          f"symbols/s (B*T*R / s, Cassini SOFT16 B={Bb} T={Tb}) on {card}",
           flush=True)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [
-        {"name": "rotated_acs", "route": "cuda",
-         "source": "viterbidecodercpp_torch/csrc/rotated_acs.cu",
-         "replaces": "viterbidecodercpp_tpu/ops/rotated_pallas.py:209",
-         "launches": launches["rotated_acs"],
-         "max_abs_err": err["rotated_acs"],
-         "ms": ms["rotated_acs"], "plain_ms": plain_ms["rotated_acs"]},
-        {"name": "chainback", "route": "cuda",
-         "source": "viterbidecodercpp_torch/csrc/chainback.cu",
-         "replaces": "viterbidecodercpp_tpu/ops/chainback_pallas.py:60",
-         "launches": launches["chainback"],
-         "max_abs_err": err["chainback"],
-         "ms": ms["chainback"], "plain_ms": plain_ms["chainback"]},
-    ], "decode_ms": decode_ms, "decoded_symbols_per_s": rate}), flush=True)
+        {"name": name, "route": "cuda", "source": src, "replaces": tpu,
+         "launches": launches[name], "max_abs_err": err[name],
+         "ms": ms[name], "plain_ms": plain_ms[name]}
+        for name, (src, tpu) in KERNELS.items()],
+        "decode_ms": decode_ms, "decoded_symbols_per_s": rate,
+        "cassini_decode_ms": decode_ms_b,
+        "cassini_decoded_symbols_per_s": rate_b}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

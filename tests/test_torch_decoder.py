@@ -185,14 +185,20 @@ def test_capacity_and_argument_errors():
 
 
 def test_cuda_device_outside_the_class_raises_not_implemented():
-    """No CUDA kernel yet for S < 64 (lane kernel) or S > 4096 (plane
-    kernels): the decoder refuses at construction instead of running a
-    plain version on the card.  No card is touched."""
+    """No CUDA kernel yet for S < 64 (lane kernel), and none for
+    S > 65536 (a frame's metrics exceed the shared memory of a cluster of
+    two blocks): the decoder refuses at construction instead of running a
+    plain version on the card, which stays for the CPU.  Cassini
+    (S = 16384) takes the plane kernels.  No card is touched."""
     with pytest.raises(NotImplementedError, match="queue 1 item 7"):
         pt.ViterbiDecoder(pt.get_code("Basic K=3 R=1/2"), "SOFT8",
                           device="cuda")
-    with pytest.raises(NotImplementedError, match="queue 1 item 9"):
-        pt.ViterbiDecoder(pt.get_code("Cassini"), "SOFT8", device="cuda")
+    k18 = pt.CodeSpec("K=18", 18, ((1 << 17) | 0o12345, (1 << 17) | 0o7651))
+    with pytest.raises(NotImplementedError, match="S <= 65536"):
+        pt.ViterbiDecoder(k18, "SOFT8", device="cuda")
+    assert pt.ViterbiDecoder(k18, "SOFT8").backend == "torch"
+    assert pt.ViterbiDecoder(pt.get_code("Cassini"), "SOFT8",
+                             device="cuda").backend == "plane"
     assert pt.ViterbiDecoder(pt.get_code("Voyager"), "SOFT8",
                              device="cuda").backend == "rotated"
 

@@ -1,0 +1,224 @@
+"""Plane ACS of the port (ops/plane.py) against the JAX package's Pallas
+kernel, bigstate_pallas.acs_plane_pallas(interpret=True).
+
+Bit-exact on the state-order final metrics, the packed (B, T, WRr, 128)
+slot-order decision words in the JAX plane bit order, and the renorm
+accumulators: Cassini in the three regimes, wrapping arithmetic, a random
+K=14 code (n * WRr = 26 word rows per step), and out-of-range symbols at
+phase0 != 0 and T < n.  Random K=16 and K=17 codes (the kernel's one-block
+and two-block cluster cases on the card) are held against
+jax_core.acs_scan instead (bits through the plane walk, metrics, acc).  Each interpret-mode call takes seconds, so every one is compared
+against several port outputs.  The kernel-vs-plain tests need a card
+(marked ``cuda``).
+"""
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+import viterbidecodercpp_torch as pt
+import viterbidecodercpp_tpu as vt
+from viterbidecodercpp_torch.ops import plane, rotated, torch_core
+from viterbidecodercpp_tpu.ops import bigstate_pallas, jax_core
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _spec_pair(jcode, mode, arith="saturating"):
+    tcode = pt.CodeSpec(jcode.name, jcode.K, jcode.G)
+    jcfg = vt.get_decode_config(vt.DecodeType(mode), jcode.R, arith=arith)
+    tcfg = pt.get_decode_config(pt.DecodeType(mode), tcode.R, arith=arith)
+    return (jax_core.make_static_spec(jcode, jcfg),
+            torch_core.make_static_spec(tcode, tcfg))
+
+
+def _random_code(K, R, seed):
+    rng = np.random.RandomState(seed)
+    G = tuple(int(rng.randint(0, 1 << K)) | 1 | (1 << (K - 1))
+              for _ in range(R))
+    return vt.CodeSpec(f"rand K={K} R=1/{R}", K, G)
+
+
+def _inputs(js, B, T, seed, spread=0):
+    """Symbols (B, T, R) and metrics off the reset state, so every slot
+    carries a live metric from the first step."""
+    rng = np.random.RandomState(seed)
+    syms = rng.randint(js.soft_low - spread, js.soft_high + spread + 1,
+                       (B, T, js.R)).astype(np.int32)
+    m0 = np.minimum(np.array(jax_core.initial_metrics(js, B, seed)),
+                    rng.randint(0, js.metric_max + 1, (js.S, B)))
+    return m0.astype(np.int32), syms
+
+
+def _check_vs_pallas(js, ts, B, T, seed, spread=0, phase0=0):
+    m0, syms = _inputs(js, B, T, seed, spread)
+    want = bigstate_pallas.acs_plane_pallas(
+        js, jnp.asarray(m0), jnp.asarray(syms), phase0=phase0,
+        interpret=True)
+    got = plane.acs_plane(ts, torch.as_tensor(m0), torch.as_tensor(syms),
+                          phase0=phase0)
+    assert got[1].shape == (B, T, ts.S // 4096, 128)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.int32
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    # the rows written into a larger buffer at an offset are the same
+    buf = torch.full((B, T + 9, ts.S // 4096, 128), -7, dtype=torch.int32)
+    m, rows, acc = plane.acs_plane_ref(
+        ts, torch.as_tensor(m0), torch.as_tensor(syms), phase0=phase0,
+        out=buf, row0=4)
+    assert torch.equal(rows, got[1]) and torch.equal(buf[:, 4:T + 4], got[1])
+    assert (buf[:, :4] == -7).all() and (buf[:, T + 4:] == -7).all()
+    assert torch.equal(m, got[0]) and torch.equal(acc, got[2])
+    return m0, syms, got
+
+
+@pytest.mark.parametrize("mode,arith", [("SOFT16", "saturating"),
+                                        ("SOFT8", "saturating"),
+                                        ("HARD8", "saturating"),
+                                        ("SOFT16", "wrapping")])
+def test_cassini_matches_pallas(mode, arith):
+    js, ts = _spec_pair(vt.get_code("Cassini"), mode, arith)
+    # 33 = 2n + 5 steps: past the JAX kernel's 28-step time block
+    _check_vs_pallas(js, ts, B=2, T=33, seed=len(mode) + len(arith))
+
+
+def test_random_k14_code_matches_pallas():
+    """K=14: WRr = 2, so a step's decisions are 26 word rows of the
+    chunk slab - the odd slab height the JAX kernel once gated out."""
+    js, ts = _spec_pair(_random_code(14, 2, 14), "SOFT8", "wrapping")
+    _check_vs_pallas(js, ts, B=3, T=31, seed=2)
+
+
+def test_out_of_range_symbols_phase0_and_short_call_match_pallas():
+    """Symbols past [-A, A] are clamped as the JAX wrapper does; phase0
+    != 0 enters mid-schedule; T < n ends inside the first period."""
+    js, ts = _spec_pair(vt.get_code("Cassini"), "SOFT8")
+    m0, syms, got = _check_vs_pallas(js, ts, B=2, T=11, seed=3, spread=4,
+                                     phase0=5)
+    assert np.abs(syms).max() > 3
+    clamped = plane.acs_plane(ts, torch.as_tensor(m0),
+                              torch.as_tensor(np.clip(syms, -3, 3)),
+                              phase0=5)
+    for g, c in zip(got, clamped):
+        assert torch.equal(g, c)
+
+
+@pytest.mark.parametrize("K", [16, 17])
+def test_random_k16_k17_codes_match_jax_core(K):
+    """K=16 (one 1024-thread block per frame on the card) and K=17 (a
+    cluster of two): metrics and acc equal the state-order XLA scan,
+    and the plane rows walk back to its bits."""
+    js, ts = _spec_pair(_random_code(K, 2, K), "SOFT16")
+    B, T = 2, 24
+    m0, syms = _inputs(js, B, T, seed=5)
+    jm, jp, ja = jax_core.acs_scan(js, jnp.asarray(m0), jnp.asarray(syms))
+    tm, tp, ta = plane.acs_plane(ts, torch.as_tensor(m0),
+                                 torch.as_tensor(syms))
+    np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
+    np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
+    total_bits = T - (js.K - 1)
+    ends = np.array([0, 12345], np.int32)
+    jb = jax_core.chainback_scan(js, jp, jnp.asarray(ends), total_bits)
+    tb = plane.chainback_plane(ts, tp, torch.as_tensor(ends), total_bits)
+    np.testing.assert_array_equal(tb.numpy(), np.asarray(jb))
+
+
+def test_chained_calls_equal_one_call():
+    """Metrics are state order at both ends, so chunks chain to the
+    one-shot result (decode_big_plane's); each chunk's rows walk back
+    with its own rotations, and phase0 = age keeps the one global
+    schedule."""
+    _, ts = _spec_pair(vt.get_code("Cassini"), "HARD8")
+    n = ts.K - 1
+    B, T = 2, 30
+    m0, syms = _inputs(ts, B, T, seed=7)
+    sy = torch.as_tensor(syms)
+    m1, p1, a1 = plane.acs_plane(ts, torch.as_tensor(m0), sy)
+    buf = torch.empty((B, T, ts.S // 4096, 128), dtype=torch.int32)
+    glob = torch.empty_like(buf)
+    m, mg = torch.as_tensor(m0), torch.as_tensor(m0)
+    acc = torch.zeros(B, dtype=torch.int32)
+    rots = torch.empty(T, dtype=torch.int32)
+    for lo, hi in ((0, 9), (9, 23), (23, 30)):
+        chunk = sy[:, lo:hi].contiguous()
+        m, _, a = plane.acs_plane(ts, m, chunk, out=buf, row0=lo)
+        mg, _, _ = plane.acs_plane(ts, mg, chunk, out=glob, row0=lo,
+                                   phase0=lo)
+        acc = acc + a
+        rots[lo:hi] = (torch.arange(hi - lo) + 1) % n
+    assert torch.equal(m, m1) and torch.equal(mg, m1)
+    assert torch.equal(acc, a1) and torch.equal(glob, p1)
+    ends = torch.zeros(B, dtype=torch.int32)
+    one, m2, p2, a2 = plane.decode_big_plane(ts, torch.as_tensor(m0), sy,
+                                             ends, T - n)
+    assert torch.equal(m2, m1) and torch.equal(p2, p1) and torch.equal(a2, a1)
+    assert torch.equal(plane.chainback_plane(ts, p1, ends, T - n), one)
+    assert torch.equal(plane.chainback_plane(ts, buf, ends, T - n,
+                                             rots=rots), one)
+
+
+def test_supports_gate_and_bounds():
+    for name, want in (("Cassini", True), ("CDMA 2000", False),
+                       ("Voyager", False)):
+        js, ts = _spec_pair(vt.get_code(name), "SOFT8")
+        assert plane.supports(ts) is want
+        assert bigstate_pallas.supports(js) is want
+        assert plane.time_block_rows(ts) == \
+            bigstate_pallas.time_block_rows(js)
+    for K, want in ((14, True), (17, True), (18, False)):
+        _, ts = _spec_pair(_random_code(K, 2, K), "SOFT8")
+        assert plane.supports(ts) is want
+    assert plane.MAX_PLANE_STATES == 1 << 16
+
+
+def test_bad_inputs_raise():
+    _, ts = _spec_pair(vt.get_code("Cassini"), "SOFT8")
+    m0 = torch_core.initial_metrics(ts, 2)
+    sy = torch.zeros((2, 4, ts.R), dtype=torch.int32)
+    with pytest.raises(ValueError, match="symbols must be"):
+        plane.acs_plane(ts, m0, sy[:, :, :2])
+    with pytest.raises(ValueError, match="metrics must be"):
+        plane.acs_plane(ts, m0[:100], sy)
+    with pytest.raises(ValueError, match="do not fit"):
+        plane.acs_plane(ts, m0, sy, out=torch.zeros((2, 5, 4, 128),
+                                                    dtype=torch.int32),
+                        row0=2)
+    with pytest.raises(ValueError, match="out must be"):
+        plane.acs_plane(ts, m0, sy, out=torch.zeros((2, 5, 2, 128),
+                                                    dtype=torch.int32))
+    with pytest.raises(ValueError, match="row0 needs"):
+        plane.acs_plane(ts, m0, sy, row0=1)
+    _, big = _spec_pair(_random_code(18, 2, 18), "SOFT8")
+    with pytest.raises(ValueError, match="plane kernels cover"):
+        plane.acs_plane_ref(big, torch_core.initial_metrics(big, 1),
+                            torch.zeros((1, 2, 2), dtype=torch.int32))
+    # the kernel's taps rebuild the whole branch table at K=15 R=6
+    g = rotated._gmask(ts)
+    assert len(g) == ts.R and all((x & 1) == 0 for x in g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,R,mode,arith", [(15, 6, "SOFT16", "saturating"),
+                                            (14, 2, "HARD8", "wrapping"),
+                                            (16, 2, "SOFT8", "saturating"),
+                                            (17, 2, "SOFT16", "wrapping")])
+def test_cuda_kernel_matches_plain(cuda_device, K, R, mode, arith):
+    jcode = vt.get_code("Cassini") if K == 15 else _random_code(K, R, K)
+    _, ts = _spec_pair(jcode, mode, arith)
+    m0, syms = _inputs(ts, 20, 61, seed=1, spread=3)
+    m0 = torch.as_tensor(m0, device=cuda_device)
+    sy = torch.as_tensor(syms, device=cuda_device)
+    before = plane.LAUNCHES["plane_acs"]
+    for phase0 in (0, 3):
+        got = plane.acs_plane(ts, m0, sy, phase0=phase0)
+        torch.cuda.synchronize()
+        want = plane.acs_plane_ref(ts, m0, sy, phase0=phase0)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert plane.LAUNCHES["plane_acs"] == before + 2

@@ -101,8 +101,8 @@ def test_port_imports_neither_jax_nor_triton():
     imported triton at import time would break the CPU tests."""
     code = ("import sys\n"
             "import viterbidecodercpp_torch\n"
-            "from viterbidecodercpp_torch.ops import (_build, chainback,"
-            " encoder, rotated, torch_core)\n"
+            "from viterbidecodercpp_torch.ops import (_build, bigstate,"
+            " chainback, encoder, plane, rotated, torch_core)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'triton', 'viterbidecodercpp_tpu')]\n"
             "assert not bad, bad\n"

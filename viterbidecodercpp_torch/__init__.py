@@ -3,9 +3,10 @@
 Batched Viterbi decoding with the JAX package's contract (reset /
 update / chainback / get_error / decode, the same decoder state and
 checkpoint format), held bit-for-bit against it.  Hot loops run as CUDA
-kernels written for Hopper (ops/rotated.py, ops/chainback.py); plain
-torch versions of each kernel serve CPU tensors.  Imports torch and
-numpy, never jax.
+kernels written for Hopper (ops/rotated.py and ops/chainback.py for
+64 <= S <= 4096, ops/plane.py for 4096 < S <= 65536); plain torch
+versions of each kernel serve CPU tensors.  Imports torch and numpy,
+never jax.
 """
 
 from .codes import (

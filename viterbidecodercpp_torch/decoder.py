@@ -14,11 +14,16 @@ Every call is batched over ``B`` independent frames.  Routing by state
 count S = 2**(K-1):
 
   * 64 <= S <= 4096 (K = 7..13): the rotated in-place ACS kernel and the
-    slot-order traceback walk (ops/rotated.py, ops/chainback.py) - CUDA
-    kernels on a CUDA device, their plain versions on the CPU.
+    slot-order traceback walk (ops/rotated.py, ops/chainback.py);
+  * 4096 < S <= 65536 (K = 14..17): the plane ACS kernel and the plane
+    walks, exact or truncated (ops/plane.py);
   * otherwise: the plain state-order scan (ops/torch_core.py) on the
-    CPU; on a CUDA device ``NotImplementedError`` until the lane kernel
-    (S < 64) and the plane kernels (S > 4096) are ported.
+    CPU; on a CUDA device ``NotImplementedError`` (S < 64 until the lane
+    kernel is ported; S > 65536 because one frame's metrics no longer
+    fit the shared memory of a cluster of two blocks).
+
+The kernel backends launch CUDA kernels on a CUDA device and run their
+plain versions on the CPU.
 """
 
 from __future__ import annotations
@@ -31,8 +36,8 @@ import torch
 
 from .codes import CodeSpec
 from .config import DecoderConfig, DecodeType, get_decode_config
+from .ops import bigstate, plane, rotated, torch_core
 from .ops import chainback as chainback_ops
-from .ops import rotated, torch_core
 
 __all__ = ["DecoderState", "ViterbiDecoder"]
 
@@ -44,17 +49,21 @@ _FIELDS = ("metrics", "decisions", "accumulated_error", "bit_cursor",
 class DecoderState:
     """The resumable decode carry, with the JAX ``DecoderState``'s fields.
 
-    ``update`` writes the decision rows and ``row_rots`` of its chunk in
-    place (the JAX package donates the carry to the same effect): keep
-    using the state it returns, not the one passed in.
+    ``decisions`` is (rows, W, B) int32 words on the rotated and torch
+    backends and (B, rows_phys, W/128, 128) on the plane backend, whose
+    row count rounds up to ``plane.time_block_rows``.  ``update`` writes
+    the decision rows and ``row_rots`` of its chunk in place (the JAX
+    package donates the carry to the same effect): keep using the state
+    it returns, not the one passed in.
     """
 
     metrics: torch.Tensor            # (S, B) int32, state-major
-    decisions: torch.Tensor          # (T_cap, W, B) int32 packed rows
+    decisions: torch.Tensor          # packed decision rows, see above
     accumulated_error: torch.Tensor  # (B,) int32 renormalisation total
     bit_cursor: torch.Tensor         # () int32 next decision row to write
-    # Rotated backend: per-decision-row walk rotations (slot-order rows).
-    row_rots: Optional[torch.Tensor] = None   # (T_cap,) int32
+    # Rotated and plane backends: per-decision-row walk rotations
+    # (slot-order rows), one per row of ``decisions``.
+    row_rots: Optional[torch.Tensor] = None   # (rows,) int32
     # Host mirror of bit_cursor (None: read it from the device once).
     host_cursor: Optional[int] = dataclasses.field(default=None,
                                                    compare=False)
@@ -76,7 +85,8 @@ class DecoderState:
     @classmethod
     def from_numpy(cls, d: dict, device="cpu") -> "DecoderState":
         """Build a carry from arrays under the JAX state's field names,
-        e.g. ``{f: np.asarray(getattr(jax_state, f)) ...}``."""
+        e.g. ``{f: np.asarray(getattr(jax_state, f)) ...}``; either
+        decision layout (3-D rows or the 4-D plane buffer)."""
         def t(name):
             return torch.tensor(np.asarray(d[name]), dtype=torch.int32,
                                 device=device)
@@ -110,9 +120,14 @@ class ViterbiDecoder:
     ``backend``:
       * ``"rotated"`` - rotated ACS + slot-order walk (64 <= S <= 4096):
         the CUDA kernels on a CUDA device, their plain versions on the CPU.
-      * ``"torch"``   - the plain state-order scan, on any device.
-      * ``"auto"``    - ``"rotated"`` where S allows it; else ``"torch"``
-        on the CPU and ``NotImplementedError`` on a CUDA device.
+      * ``"plane"``   - plane ACS + plane walks (4096 < S <= 65536), the
+        same way.
+      * ``"torch"``   - the plain state-order scan, on any device (and
+        the rotated-layout scan of ops/bigstate.py for ``decode`` with
+        S > 4096).
+      * ``"auto"``    - ``"rotated"`` or ``"plane"`` where S allows it;
+        else ``"torch"`` on the CPU and ``NotImplementedError`` on a CUDA
+        device.
 
     Input contract: soft symbols lie in [soft_decision_low,
     soft_decision_high]; the decoder clamps inputs to that range
@@ -131,29 +146,41 @@ class ViterbiDecoder:
         self.device = torch.device(device)
         if self.device.type not in ("cpu", "cuda"):
             raise ValueError(f"unsupported device {self.device}")
-        in_class = (rotated.ROTATED_MIN_STATES <= self.spec.S
+        S = self.spec.S
+        in_class = (rotated.ROTATED_MIN_STATES <= S
                     <= torch_core.MAX_LANE_STATES)
         if backend == "auto":
             if in_class:
                 backend = "rotated"
+            elif plane.supports(self.spec):
+                backend = "plane"
             elif self.device.type == "cpu":
                 backend = "torch"
-            else:
-                item = ("queue 1 item 7 (lane kernel, S < 64)"
-                        if self.spec.S < rotated.ROTATED_MIN_STATES else
-                        "queue 1 item 9 (plane kernels, S > 4096)")
+            elif S < rotated.ROTATED_MIN_STATES:
                 raise NotImplementedError(
-                    f"no CUDA kernel for S={self.spec.S} yet: see ROADMAP.md "
-                    f"{item}; the CPU runs the plain scan")
-        if backend not in ("rotated", "torch"):
+                    f"no CUDA kernel for S={S} yet: see ROADMAP.md queue 1 "
+                    f"item 7 (lane kernel, S < 64); the CPU runs the plain "
+                    f"scan")
+            else:
+                raise NotImplementedError(
+                    f"no CUDA kernel for S={S}: the plane ACS kernel keeps "
+                    f"one frame's int32 metrics in the shared memory of a "
+                    f"block or a cluster of two (227 KB each), which bounds "
+                    f"it to S <= {plane.MAX_PLANE_STATES}; see ROADMAP.md "
+                    f"queue 3. The CPU runs the plain scan")
+        if backend not in ("rotated", "plane", "torch"):
             raise ValueError(f"unknown backend {backend!r}")
         if backend == "rotated" and not in_class:
             raise ValueError(f"the rotated backend covers "
                              f"{rotated.ROTATED_MIN_STATES} <= S <= "
-                             f"{torch_core.MAX_LANE_STATES}, got "
-                             f"S={self.spec.S}")
+                             f"{torch_core.MAX_LANE_STATES}, got S={S}")
+        if backend == "plane" and not plane.supports(self.spec):
+            raise ValueError(f"the plane backend covers "
+                             f"{torch_core.MAX_LANE_STATES} < S <= "
+                             f"{plane.MAX_PLANE_STATES}, got S={S}")
         self.backend = backend
         self._rotated = backend == "rotated"
+        self._plane = backend == "plane"
         self._traceback_length = int(traceback_length)
 
     # -- capacity ---------------------------------------------------------
@@ -173,20 +200,35 @@ class ViterbiDecoder:
     # -- state ------------------------------------------------------------
     def reset(self, batch: int, starting_state: int = 0) -> DecoderState:
         """Fresh carry for ``batch`` frames (viterbi_decoder_core.h:202-211).
-        Decision rows are (rows, W, B) words: slot order on the rotated
-        backend (with ``row_rots``), state order on the torch backend."""
+        Decision rows are (rows, W, B) words, slot order on the rotated
+        backend (with ``row_rots``) and state order on the torch backend,
+        or a (B, rows_phys, W/128, 128) plane buffer (with ``row_rots``)
+        on the plane backend."""
+        return self._reset(batch, starting_state, zero_fill=True)
+
+    def _reset(self, batch: int, starting_state: int,
+               zero_fill: bool) -> DecoderState:
         spec, dev = self.spec, self.device
         rows = self.decision_rows
+        if self._plane:
+            # rows round up to the JAX plane kernel's time block, so a
+            # checkpoint's buffer has one shape in both packages; rows
+            # past decision_rows are never written or read
+            tb = plane.time_block_rows(spec)
+            rows = -(-rows // tb) * tb
+            shape = (batch, rows, spec.W // plane.COLS, plane.COLS)
+        else:
+            shape = (rows, spec.W, batch)
+        alloc = torch.zeros if zero_fill else torch.empty
         return DecoderState(
             metrics=torch_core.initial_metrics(spec, batch, starting_state,
                                                dev),
-            decisions=torch.zeros((rows, spec.W, batch), dtype=torch.int32,
-                                  device=dev),
+            decisions=alloc(shape, dtype=torch.int32, device=dev),
             accumulated_error=torch.zeros(batch, dtype=torch.int32,
                                           device=dev),
             bit_cursor=torch.zeros((), dtype=torch.int32, device=dev),
             row_rots=(torch.zeros(rows, dtype=torch.int32, device=dev)
-                      if self._rotated else None),
+                      if self._rotated or self._plane else None),
             host_cursor=0,
         )
 
@@ -197,6 +239,7 @@ class ViterbiDecoder:
         ``state.decisions``).  Call as many times as you like before
         ``chainback`` (run_punctured_decoder.cpp:258-282)."""
         spec = self.spec
+        n = spec.K - 1
         symbols = torch.as_tensor(symbols, device=self.device)
         if symbols.dim() != 2:
             raise ValueError(f"symbols must be (B, N), got "
@@ -207,7 +250,10 @@ class ViterbiDecoder:
         if B != state.batch:
             raise ValueError(f"symbols carry {B} frames, the state {state.batch}")
         nbits = N // self.code.R
-        capacity = state.decisions.shape[0]
+        phys = state.decisions.shape[1 if self._plane else 0]
+        # the plane buffer is padded past decision_rows with rows that are
+        # never read, so its logical capacity is the smaller count
+        capacity = min(phys, self.decision_rows) if self._plane else phys
         # Mirror of the reference's capacity assert
         # (viterbi_decoder_core.h:180-186): a write past the decision
         # buffer would otherwise corrupt the tail.  A state from load()
@@ -226,23 +272,31 @@ class ViterbiDecoder:
         syms = torch.clamp(symbols.to(torch.int32), spec.soft_low,
                            spec.soft_high).reshape(B, nbits, spec.R)
         row_rots = state.row_rots
-        if self._rotated:
-            metrics, packed, acc = rotated.acs_rotated(
-                spec, state.metrics.contiguous(), syms.contiguous())
-            if row_rots is None:
-                # state from a torch-backend decoder or built by hand:
-                # its rows follow the one-shot global schedule
-                row_rots = torch.as_tensor(
-                    (np.arange(capacity) + 1) % (spec.K - 1),
-                    dtype=torch.int32, device=self.device)
+        slot_rows = self._rotated or self._plane
+        if slot_rows and row_rots is None:
+            # a state from a torch-backend decoder, built by hand, or a
+            # plane checkpoint from before row_rots: its rows follow the
+            # one-shot global schedule (row + 1) mod n
+            row_rots = torch.as_tensor((np.arange(phys) + 1) % n,
+                                       dtype=torch.int32, device=self.device)
+        if self._plane:
+            # the kernel writes the chunk's rows straight into the buffer
+            metrics, _, acc = plane.acs_plane(
+                spec, state.metrics.contiguous(), syms,
+                out=state.decisions, row0=cursor)
+        else:
+            if self._rotated:
+                metrics, packed, acc = rotated.acs_rotated(
+                    spec, state.metrics.contiguous(), syms.contiguous())
+            else:
+                metrics, packed, acc = torch_core.acs_scan(
+                    spec, state.metrics, syms)
+            state.decisions[cursor:cursor + nbits] = packed
+        if slot_rows:
             # row i of this chunk is slot-rotated by (i + 1) mod n
             row_rots[cursor:cursor + nbits] = (
                 torch.arange(1, nbits + 1, dtype=torch.int32,
-                             device=self.device) % (spec.K - 1))
-        else:
-            metrics, packed, acc = torch_core.acs_scan(spec, state.metrics,
-                                                       syms)
-        state.decisions[cursor:cursor + nbits] = packed
+                             device=self.device) % n)
         return DecoderState(
             metrics=metrics,
             decisions=state.decisions,
@@ -261,23 +315,39 @@ class ViterbiDecoder:
         return state.metrics[end_state & (self.spec.S - 1), :]
 
     def chainback(self, state: DecoderState, total_bits: int,
-                  end_state: int = 0, *, mode: str = "exact") -> torch.Tensor:
+                  end_state: int = 0, *, mode: str = "exact",
+                  block: int = 512, overlap: int = 128) -> torch.Tensor:
         """Trace back and return (B, total_bits) uint8 decoded data bits
-        (viterbi_decoder_core.h:214-236), the reference-exact walk."""
+        (viterbi_decoder_core.h:214-236).
+
+        ``mode="exact"`` is the reference-exact sequential walk.
+        ``mode="truncated"`` (plane backend only) splits the walk into
+        ``block``-row tiles that trace back in parallel, each warmed up by
+        an ``overlap``-row walk: with overlap >= ~10 K the bits equal the
+        exact walk's with overwhelming probability, but are no longer
+        guaranteed maximum-likelihood.
+        """
         if total_bits > self._traceback_length:
             raise ValueError("total_bits exceeds traceback_length")
         if mode not in ("exact", "truncated"):
             raise ValueError(f"unknown chainback mode {mode!r}")
-        if mode == "truncated":
-            raise ValueError(
-                "mode='truncated' is for the big-state plane backend"
-                " (small codes' exact chainback is already parallel"
-                " across frames and faster than a truncated walk)")
         ends = torch.full((state.batch,), end_state, dtype=torch.int32,
                           device=state.decisions.device)
+        if mode == "truncated":
+            if not self._plane:
+                raise ValueError(
+                    "mode='truncated' is for the big-state plane backend"
+                    " (small codes' exact chainback is already parallel"
+                    " across frames and faster than a truncated walk)")
+            return plane.chainback_plane_truncated(
+                self.spec, state.decisions, ends, total_bits,
+                state.row_rots, block, overlap)
+        # slot-order rows: stream each row's recorded rotation; a state
+        # without row_rots follows the one-shot schedule
+        if self._plane:
+            return plane.chainback_plane(self.spec, state.decisions, ends,
+                                         total_bits, state.row_rots)
         if self._rotated:
-            # slot-order rows: stream each row's recorded rotation; a
-            # state without row_rots follows the one-shot schedule
             return chainback_ops.chainback(
                 self.spec, state.decisions, ends, total_bits,
                 slot_order=True, rots=state.row_rots)
@@ -299,12 +369,31 @@ class ViterbiDecoder:
 
         When ``total_bits`` exceeds the traceback capacity this grows it
         via set_traceback_length, and the growth is sticky, exactly like
-        the reference core's (viterbi_decoder_core.h:180-186).
+        the reference core's (viterbi_decoder_core.h:180-186).  On the
+        torch backend a code with S > 4096 decodes through the
+        rotated-layout scan (ops/bigstate.py), as the JAX xla backend's
+        decode does, without touching the traceback length.
         """
+        spec = self.spec
         symbols = torch.as_tensor(symbols, device=self.device)
+        B = symbols.shape[0]
+        if torch_core.needs_big_state(spec) and not self._plane:
+            m0 = torch_core.initial_metrics(spec, B, 0, self.device)
+            ends = torch.full((B,), end_state, dtype=torch.int32,
+                              device=self.device)
+            # the same input clamp as update (decoder-wide contract)
+            syms = torch.clamp(symbols.to(torch.int32).reshape(B, -1, spec.R),
+                               spec.soft_low, spec.soft_high)
+            bits, m, _, acc = bigstate.decode_big(spec, m0, syms, ends,
+                                                  total_bits)
+            return bits, m[end_state & (spec.S - 1), :], acc
         if self._traceback_length < total_bits:
             self.set_traceback_length(total_bits)
-        state = self.reset(symbols.shape[0])
+        # a plane buffer the one update fills up to every row the
+        # chainback reads needs no zero fill (at Cassini B=512 it is 2 GB)
+        nrows = symbols.shape[-1] // self.code.R
+        state = self._reset(B, 0, zero_fill=not (
+            self._plane and nrows >= total_bits + self.code.K - 1))
         state = self.update(state, symbols)
         bits = self.chainback(state, total_bits, end_state)
         return bits, self.get_error(state, end_state), state.accumulated_error

@@ -1,2 +1,2 @@
-"""Device kernels and their plain versions (torch_core, rotated,
-chainback) and the tensor encoder."""
+"""Device kernels and their plain versions (rotated, chainback, plane),
+the plain scans (torch_core, bigstate) and the tensor encoder."""

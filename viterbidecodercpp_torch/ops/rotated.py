@@ -32,8 +32,8 @@ import torch
 
 from .torch_core import MAX_LANE_STATES, StaticSpec, pack_bits
 
-__all__ = ["acs_rotated", "acs_rotated_ref", "ROTATED_MIN_STATES",
-           "LAUNCHES"]
+__all__ = ["acs_rotated", "acs_rotated_ref", "slot_scan",
+           "ROTATED_MIN_STATES", "LAUNCHES"]
 
 ROTATED_MIN_STATES = 64
 MAX_RATE = 16          # VDT_MAX_R in csrc/rotated_acs.cu
@@ -84,23 +84,29 @@ def _check(spec: StaticSpec, metrics: torch.Tensor,
     return B, symbols.shape[1]
 
 
-def acs_rotated_ref(spec: StaticSpec, metrics: torch.Tensor,
-                    symbols: torch.Tensor
-                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Plain version of :func:`acs_rotated`, on any device."""
-    B, T = _check(spec, metrics, symbols)
+def slot_scan(spec: StaticSpec, metrics: torch.Tensor,
+              symbols: torch.Tensor, emit, phase0: int = 0
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The rotated schedule as plain torch ops over a loop on T (any S).
+
+    metrics (S, B) int32 state order, symbols (B, T, R) int32.  The
+    entry layout is age ``phase0``: slot p holds state rotl_n(p, phase0).
+    ``emit(t, dbit)`` receives each step's (S, B) bool decisions in slot
+    order.  Returns (metrics (S, B) int32 state order, acc (B,) int32).
+    """
+    B, T = symbols.shape[0], symbols.shape[1]
     n = spec.K - 1
     S = spec.S
     device = metrics.device
     slot_bt = torch.as_tensor(_slot_bt(spec), device=device)   # (n, R, S)
     pos = torch.arange(S, device=device)
     sym = symbols.to(torch.int32)
-    m = metrics.to(torch.int32)
+    perm_in = torch.as_tensor(_rotr(np.arange(S), -phase0, n), device=device)
+    m = metrics.to(torch.int32)[perm_in]
     acc = torch.zeros(B, dtype=torch.int32, device=device)
-    packed = torch.empty((T, spec.W, B), dtype=torch.int32, device=device)
     cap = spec.metric_max
     for t in range(T):
-        phi = t % n
+        phi = (phase0 + t) % n
         dist = 1 << ((n - 1 - phi) % n)
         odd = ((pos & dist) != 0)[:, None]                     # (S, 1)
         partner = m[pos ^ dist]
@@ -129,9 +135,24 @@ def acs_rotated_ref(spec: StaticSpec, metrics: torch.Tensor,
         sub = torch.where(gate, mins, torch.zeros_like(mins))
         m = nm - sub[None, :]
         acc = acc + sub
+        emit(t, dbit)
+    perm = torch.as_tensor(_rotr(np.arange(S), phase0 + T, n), device=device)
+    return m[perm], acc
+
+
+def acs_rotated_ref(spec: StaticSpec, metrics: torch.Tensor,
+                    symbols: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of :func:`acs_rotated`, on any device."""
+    B, T = _check(spec, metrics, symbols)
+    packed = torch.empty((T, spec.W, B), dtype=torch.int32,
+                         device=metrics.device)
+
+    def emit(t, dbit):
         packed[t] = pack_bits(dbit)      # slot p -> bit p%32 of word p>>5
-    perm = torch.as_tensor(_rotr(np.arange(S), T % n, n), device=device)
-    return m[perm], packed, acc
+
+    m, acc = slot_scan(spec, metrics, symbols, emit)
+    return m, packed, acc
 
 
 @functools.lru_cache(maxsize=64)

@@ -4,9 +4,10 @@ The port's twin of ``viterbidecodercpp_tpu/ops/jax_core.py``: plain
 torch ops over a Python loop on T, batched over frames, on any device.
 It is the port's executable specification in *state order* - the
 ``ViterbiDecisionBits`` layout - and so an independent second reference
-beside the rotated kernel, whose layout and schedule differ.  The
-decoder uses it as ``backend="torch"`` (and for S < 64 on the CPU);
-``backend="auto"`` never picks it on a CUDA device.
+beside the rotated and plane kernels, whose layouts and schedules
+differ.  The decoder uses it as ``backend="torch"`` (and for S < 64 and
+S > 65536 on the CPU); ``backend="auto"`` never picks it on a CUDA
+device.
 
 Conventions shared with the JAX package (so tests compare like with
 like):
@@ -49,8 +50,8 @@ __all__ = [
 
 DECISION_WORD_BITS = 32
 
-# Upper end of the rotated kernel's class; above it the JAX package runs
-# the plane kernels, which the port has not ported yet.
+# Upper end of the rotated kernel's class; above it the plane kernels
+# (ops/plane.py) take over, as in the JAX package.
 MAX_LANE_STATES = 4096
 
 
