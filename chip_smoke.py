@@ -6,7 +6,7 @@
 Phases, in order; any failure raises and exits non-zero:
 
 1. Device: requires ``torch.cuda.is_available()``, prints the card's
-   name and power limit (nvidia-smi), builds all five CUDA kernels from
+   name and power limit (nvidia-smi), builds all six CUDA kernels from
    ``viterbidecodercpp_torch/csrc`` with nvcc for sm_90a, one nvcc
    process per source, all started together (into
    ``viterbidecodercpp_torch/_build/``), and prints the build times.
@@ -21,6 +21,11 @@ Phases, in order; any failure raises and exits non-zero:
    acc); on those rows the frame-major walk with random rotations and a
    valid mask, and the truncated walk at block=64/overlap=96 and at its
    defaults.
+2c. The same for the lane class: the lane ACS kernel on Basic K=3, Basic
+   K=5 and random K=2 (R=3), K=4 (R=5) and K=6 (R=4) codes x the three
+   regimes x both arithmetic modes at B=100 (not a multiple of 32/S),
+   T=301, from off-reset metrics, symbols past the soft range; on its
+   rows the state-order walk kernel.
 3. The flagship path at full size: Voyager K=7 R=1/2 SOFT8, B=1024
    frames x 2048 trellis steps (2042 random data bits + 6 tail bits per
    frame), encoded on the card, mild numpy noise, decoded by
@@ -33,9 +38,23 @@ Phases, in order; any failure raises and exits non-zero:
    frames x 2062 trellis steps (2048 data bits + 14 tail bits), the same
    checks, plus ``chainback(mode="truncated")`` at its defaults equal to
    the exact bits; all three plane kernels must have launched.
+3c. The lane path at full size: Basic K=5 R=1/2 SOFT16, B=512 frames x
+   2052 trellis steps (2048 data bits + 4 tail bits), the same checks as
+   phase 3; the lane ACS and the state-order walk must have launched.
+3d. Streaming at full size, ``StreamingDecoder.push`` on three routes:
+   Voyager SOFT16 B=1024 window 256 chunk 64 (rotated ACS + slot-order
+   walk), Basic K=5 SOFT16 B=1024 window 160 chunk 32 (lane ACS +
+   state-order walk), Cassini SOFT16 B=512 window 280 chunk 56 (plane ACS
+   + plane walk); 2048 data bits per frame plus the tail and window+chunk
+   flush rows.  Each stream must equal the data sent on mild noise, equal
+   the same stream through the plain versions of its kernels on the card
+   (bits, valid, final metrics, ring) and have launched its kernels.  Then
+   Voyager on an AWGN channel (utils/testsig.py): the bit-error delta of
+   windows 64, 128 and 256 against the exact decode of the same symbols.
 4. Times on the card (CUDA events, warm-up, median): each kernel and its
-   plain version at its path's full-size shape, and each whole decode in
-   decoded symbols/s (B*T*R / s).
+   plain version at its path's full-size shape, each whole decode in
+   decoded symbols/s (B*T*R / s), and each stream's median ms per push
+   and streamed symbols/s (B*chunk*R / s).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is a JSON object with one entry per kernel.  Imports nothing of JAX.
@@ -71,7 +90,21 @@ KERNELS = {
                    "viterbidecodercpp_tpu/ops/bigstate_pallas.py:535"),
     "plane_walk_trunc": ("viterbidecodercpp_torch/csrc/plane_walk_trunc.cu",
                          "viterbidecodercpp_tpu/ops/bigstate_pallas.py:713"),
+    "lane_acs": ("viterbidecodercpp_torch/csrc/lane_acs.cu",
+                 "viterbidecodercpp_tpu/ops/acs_pallas.py:125"),
 }
+# (code, mode, B, window, chunk, route, the route's kernels)
+STREAMS = (
+    ("Voyager", "SOFT16", 1024, 256, 64, "rotated",
+     ("rotated_acs", "chainback")),
+    ("Basic K=5 R=1/2", "SOFT16", 1024, 160, 32, "lane",
+     ("lane_acs", "chainback")),
+    ("Cassini", "SOFT16", 512, 280, 56, "plane", ("plane_acs", "plane_walk")),
+)
+SWEEP_EBNO_DB = 3.0
+SWEEP_WINDOWS = (64, 128, 256)
+SWEEP_CHUNK = 32
+SWEEP_END_BITS = 64
 
 
 class SmokeFailure(RuntimeError):
@@ -172,10 +205,10 @@ def phase2(pt, torch_core, rotated, chainback, dev, rng) -> dict:
           flush=True)
     return err
 
-def random_code(pt, K: int, rng):
+def random_code(pt, K: int, rng, R: int = 2):
     G = tuple(int(rng.randint(0, 1 << K)) | 1 | (1 << (K - 1))
-              for _ in range(2))
-    return pt.CodeSpec(f"random K={K} R=1/2 G={G}", K, G)
+              for _ in range(R))
+    return pt.CodeSpec(f"random K={K} R=1/{R} G={G}", K, G)
 
 
 def phase2b(pt, torch_core, plane, dev, rng) -> dict:
@@ -244,6 +277,243 @@ def phase2b(pt, torch_core, plane, dev, rng) -> dict:
     return err
 
 
+def reset_counts() -> None:
+    from viterbidecodercpp_torch.ops import chainback, lane, plane, rotated
+    rotated.LAUNCHES = chainback.LAUNCHES = lane.LAUNCHES = 0
+    for name in plane.LAUNCHES:
+        plane.LAUNCHES[name] = 0
+
+
+def read_counts() -> dict:
+    from viterbidecodercpp_torch.ops import chainback, lane, plane, rotated
+    return {"rotated_acs": rotated.LAUNCHES, "chainback": chainback.LAUNCHES,
+            "lane_acs": lane.LAUNCHES, **plane.LAUNCHES}
+
+
+def add_counts(launches: dict, counts: dict, kernels, what: str) -> None:
+    """Require each of ``kernels`` to have launched, and add the counts."""
+    for name in kernels:
+        require(counts[name] > 0, f"{what} did not launch the {name} kernel")
+        launches[name] = launches.get(name, 0) + counts[name]
+
+
+def phase2c(pt, dev, rng) -> dict:
+    """Lane kernel vs plain at B=100, T=301 across the class; returns the
+    largest difference seen per kernel (0 when bit-exact)."""
+    from viterbidecodercpp_torch.ops import chainback, lane, torch_core
+    err = {"lane_acs": 0, "chainback": 0}
+    codes = [pt.get_code("Basic K=3 R=1/2"), pt.get_code("Basic K=5 R=1/2")]
+    codes += [random_code(pt, K, rng, R) for K, R in ((2, 3), (4, 5), (6, 4))]
+    specs = []
+    for code in codes:
+        for mode in MODES:
+            for arith in ARITHS:
+                cfg = pt.get_decode_config(pt.DecodeType(mode), code.R,
+                                           arith=arith)
+                specs.append((f"{code.name} {mode} {arith}",
+                              torch_core.make_static_spec(code, cfg)))
+    B, T = 100, 301
+    for label, spec in specs:
+        n = spec.K - 1
+        # symbols past the soft range: the kernel's branch metric is the
+        # abs-diff, exact for any symbols
+        syms = torch.as_tensor(
+            rng.randint(spec.soft_low - 2, spec.soft_high + 3,
+                        (B, T, spec.R)).astype(np.int32), device=dev)
+        m0 = torch_core.initial_metrics(spec, B, 0, dev)
+        m0 = torch.minimum(m0, torch.as_tensor(
+            rng.randint(0, spec.metric_max + 1, m0.shape).astype(np.int32),
+            device=dev))
+        got = lane.acs_lane(spec, m0, syms)
+        torch.cuda.synchronize()
+        want = lane.acs_lane_ref(spec, m0, syms)
+        e = max(max_abs_diff(g, w) for g, w in zip(got, want))
+        err["lane_acs"] = max(err["lane_acs"], e)
+        require(e == 0, f"lane ACS kernel != plain for {label} (max abs "
+                        f"diff {e})")
+        if spec.S < 32:
+            require(bool(((got[1] >> spec.S) == 0).all()),
+                    f"lane ACS words carry bits >= S for {label}")
+        ends = torch.as_tensor(rng.randint(0, spec.S, B).astype(np.int32),
+                               device=dev)
+        walk = chainback.chainback(spec, got[1], ends, T - n)
+        torch.cuda.synchronize()
+        e = max_abs_diff(walk, chainback.chainback_ref(spec, got[1], ends,
+                                                       T - n))
+        err["chainback"] = max(err["chainback"], e)
+        require(e == 0, f"state-order walk kernel != plain for {label}")
+    print(f"phase2c ok: {len(specs)} lane specs at B={B} T={T}, kernel == "
+          f"plain bit-for-bit (ACS metrics/rows/acc from off-reset metrics, "
+          f"symbols past the soft range; state-order walk)", flush=True)
+    return err
+
+
+def exact_frames(bits: torch.Tensor, data: torch.Tensor) -> int:
+    return int((bits == data).all(dim=1).sum())
+
+
+def phase3c(pt, dev, rng, launches: dict):
+    """The lane path at full size; returns (decoder, symbols, N)."""
+    from viterbidecodercpp_torch.ops import encoder, torch_core
+    code = pt.get_code("Basic K=5 R=1/2")
+    B, N = 512, 2048
+    T, R = N + code.K - 1, code.R
+    data = torch.as_tensor(rng.randint(0, 2, (B, N)).astype(np.uint8),
+                           device=dev)
+    clean = encoder.encode_symbols(code, data, 127, -127).cpu().numpy()
+    # mild noise: every symbol keeps its sign, so the decode is exact
+    noisy = np.clip(clean + rng.randint(-60, 61, clean.shape), -127, 127)
+    syms = torch.as_tensor(noisy.reshape(B, T * R).astype(np.int32),
+                           device=dev)
+    dec = pt.ViterbiDecoder(code, "SOFT16", device=dev)
+    require(dec.backend == "lane", f"Basic K=5 took the {dec.backend} "
+                                   f"backend on the card")
+    reset_counts()
+    bits, final_err, acc = dec.decode(syms, N)
+    state = dec.reset(B)
+    cuts = (0, 333, 1001, T)           # ragged chunk lengths
+    for lo, hi in zip(cuts[:-1], cuts[1:]):
+        state = dec.update(state, syms[:, lo * R:hi * R])
+    ragged = dec.chainback(state, N)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    add_counts(launches, counts, ("lane_acs", "chainback"), "the lane path")
+    exact = exact_frames(bits, data)
+    require(exact == B, f"only {exact} of {B} Basic K=5 frames decoded "
+                        f"exactly")
+    spec = dec.spec
+    m0 = torch_core.initial_metrics(spec, B, 0, dev)
+    ref_m, ref_p, ref_acc = torch_core.acs_scan(spec, m0,
+                                                syms.reshape(B, T, R))
+    ref_bits = torch_core.chainback_scan(
+        spec, ref_p, torch.zeros(B, dtype=torch.int32, device=dev), N)
+    require(torch.equal(bits, ref_bits), "lane decode bits != plain scan")
+    require(torch.equal(final_err, ref_m[0]), "lane final error != plain")
+    require(torch.equal(acc, ref_acc), "lane acc != plain scan")
+    require(torch.equal(ragged, ref_bits), "lane ragged bits != plain")
+    require(torch.equal(state.metrics, ref_m), "lane ragged metrics != plain")
+    require(torch.equal(state.accumulated_error, ref_acc),
+            "lane ragged acc != plain")
+    require(torch.equal(state.decisions, ref_p), "lane rows != plain rows")
+    print(f"phase3c ok: Basic K=5 SOFT16 B={B} T={T}: {exact}/{B} frames "
+          f"exact; bits, final metrics, acc and state-order rows == plain "
+          f"scan; ragged updates of {np.diff(cuts).tolist()} steps agree; "
+          f"launches { {k: counts[k] for k in ('lane_acs', 'chainback')} }",
+          flush=True)
+    return dec, syms, N
+
+
+def run_stream(sd, stream: torch.Tensor, n_push: int):
+    """Push ``stream`` (B, n_push * chunk * R) through ``sd``; returns
+    ([(bits, valid)] per push, final state)."""
+    state = sd.reset(stream.shape[0])
+    step = sd.chunk * sd.code.R
+    out = []
+    for i in range(n_push):
+        state, bits, valid = sd.push(state, stream[:, i * step:(i + 1) * step])
+        out.append((bits, valid))
+    return out, state
+
+
+def committed(out, code, N: int) -> torch.Tensor:
+    """The data bits of a stream: its valid output from row K-1 on."""
+    bits = torch.cat([b for b, v in out if v], dim=1)
+    return bits[:, code.K - 1:code.K - 1 + N]
+
+
+def padded_stream(syms: torch.Tensor, rows: int) -> torch.Tensor:
+    """(B, T, R) symbols zero-padded to ``rows`` steps, as (B, rows * R)."""
+    B, T, R = syms.shape
+    out = torch.zeros((B, rows, R), dtype=torch.int32, device=syms.device)
+    out[:, :T] = syms
+    return out.reshape(B, rows * R)
+
+
+def phase3d(pt, dev, rng, launches: dict, seed: int) -> list:
+    """The three full-size streams and the window sweep; returns, per
+    stream, what phase 4 times: (label, decoder, primed state, block)."""
+    from viterbidecodercpp_torch.ops import encoder
+    from viterbidecodercpp_torch.utils import testsig
+    timed = []
+    N = 2048
+    for name, mode, B, window, chunk, route, kernels in STREAMS:
+        code = pt.get_code(name)
+        R = code.R
+        n_push = -(-(N + code.K - 1 + window + chunk) // chunk)
+        data = torch.as_tensor(rng.randint(0, 2, (B, N)).astype(np.uint8),
+                               device=dev)
+        clean = encoder.encode_symbols(code, data, 127, -127)
+        noise = torch.as_tensor(rng.randint(-60, 61, clean.shape)
+                                .astype(np.int32), device=dev)
+        # mild noise: every symbol keeps its sign, so the stream is exact
+        stream = padded_stream(torch.clamp(clean + noise, -127, 127),
+                               n_push * chunk)
+        label = f"{name} {mode} B={B} window={window} chunk={chunk}"
+        sd = pt.StreamingDecoder(code, mode, window=window, chunk=chunk,
+                                 device=dev)
+        require(sd.backend == route, f"{label} took the {sd.backend} route")
+        reset_counts()
+        out, state = run_stream(sd, stream, n_push)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        add_counts(launches, counts, kernels, f"the {label} stream")
+        exact = exact_frames(committed(out, code, N), data)
+        require(exact == B, f"{label}: only {exact} of {B} streams equal "
+                            f"the data sent")
+        sp = pt.StreamingDecoder(code, mode, window=window, chunk=chunk,
+                                 device=dev, plain=True)
+        out_p, state_p = run_stream(sp, stream, n_push)
+        for i, ((b, v), (bp, vp)) in enumerate(zip(out, out_p)):
+            require(v == vp and torch.equal(b, bp),
+                    f"{label}: push {i} != the plain stream")
+        for f in ("metrics", "history", "rows_seen"):
+            require(torch.equal(getattr(state, f), getattr(state_p, f)),
+                    f"{label}: final {f} != the plain stream")
+        print(f"phase3d ok: {label} ({route}), {n_push} pushes: {exact}/{B} "
+              f"streams equal the data sent; bits, valid, final metrics and "
+              f"ring == the plain stream on the card; launches "
+              f"{ {k: counts[k] for k in kernels} }", flush=True)
+        timed.append((label, sd, state, stream[:, :chunk * R]))
+        del out_p, state_p, stream
+
+    # window sweep on an AWGN channel
+    code = pt.get_code("Voyager")
+    B, R = 1024, code.R
+    T = N + code.K - 1
+    cfg = pt.get_decode_config(pt.DecodeType.SOFT16, R)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    data = torch.randint(0, 2, (B, N), generator=gen, device=dev,
+                         dtype=torch.uint8)
+    syms = testsig.awgn_quantize(testsig.modulate_encode(code, data), gen,
+                                 SWEEP_EBNO_DB, R, cfg)
+    bits, _, _ = pt.ViterbiDecoder(code, cfg, device=dev).decode(
+        syms.reshape(B, T * R), N)
+    # the exact decode ends in state 0 (the tail); a stream does not use
+    # the termination and walks from its best state, so the last bits of a
+    # frame differ for a reason that no window fixes: count those apart
+    body = N - SWEEP_END_BITS
+    e_exact = int(testsig.count_bit_errors(bits, data))
+    e_body = int(testsig.count_bit_errors(bits[:, :body], data[:, :body]))
+    line = (f"phase3d sweep: Voyager SOFT16 B={B} x {N} bits, AWGN at Eb/No "
+            f"{SWEEP_EBNO_DB} dB: exact decode {e_exact} bit errors "
+            f"(BER {e_exact / (B * N):.4e})")
+    for window in SWEEP_WINDOWS:
+        n_push = -(-(T + window + SWEEP_CHUNK) // SWEEP_CHUNK)
+        sd = pt.StreamingDecoder(code, cfg, window=window, chunk=SWEEP_CHUNK,
+                                 device=dev)
+        out, _ = run_stream(sd, padded_stream(syms, n_push * SWEEP_CHUNK),
+                            n_push)
+        got = committed(out, code, N)
+        e = int(testsig.count_bit_errors(got, data))
+        eb = int(testsig.count_bit_errors(got[:, :body], data[:, :body]))
+        line += (f"; window {window} (chunk {SWEEP_CHUNK}): {e} errors, "
+                 f"delta {e - e_exact:+d} (bits [0, {body}): delta "
+                 f"{eb - e_body:+d})")
+    print(line, flush=True)
+    return timed
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -253,7 +523,7 @@ def main() -> None:
                          "this run needs a CUDA card")
     import viterbidecodercpp_torch as pt
     from viterbidecodercpp_torch.ops import (_build, chainback, encoder,
-                                             plane, rotated, torch_core)
+                                             lane, plane, rotated, torch_core)
 
     dev = torch.device("cuda", 0)
     rng = np.random.RandomState(args.seed)
@@ -276,6 +546,8 @@ def main() -> None:
     # -- phase 2: kernels vs plain across each class --------------------
     err = phase2(pt, torch_core, rotated, chainback, dev, rng)
     err.update(phase2b(pt, torch_core, plane, dev, rng))
+    for name, e in phase2c(pt, dev, rng).items():
+        err[name] = max(err.get(name, 0), e)
 
     # -- phase 3: the flagship path at full size ------------------------
     code = pt.get_code("Voyager")
@@ -289,16 +561,13 @@ def main() -> None:
     syms = torch.as_tensor(noisy.reshape(B, T * code.R).astype(np.int32),
                            device=dev)
     dec = pt.ViterbiDecoder(code, "SOFT8", device=dev)
-    rotated.LAUNCHES = 0
-    chainback.LAUNCHES = 0
+    reset_counts()
     bits, final_err, acc = dec.decode(syms, N)
     torch.cuda.synchronize()
-    launches = {"rotated_acs": rotated.LAUNCHES,
-                "chainback": chainback.LAUNCHES}
-    for name, count in launches.items():
-        require(count > 0, f"main path did not launch the {name} kernel")
-    data_t = torch.as_tensor(data, device=dev)
-    exact = int((bits == data_t).all(dim=1).sum())
+    launches = {}
+    add_counts(launches, read_counts(), ("rotated_acs", "chainback"),
+               "the main path")
+    exact = exact_frames(bits, torch.as_tensor(data, device=dev))
     require(exact == B, f"only {exact} of {B} frames decoded exactly")
     spec = dec.spec
     m0 = torch_core.initial_metrics(spec, B, 0, dev)
@@ -340,8 +609,7 @@ def main() -> None:
     dec_b = pt.ViterbiDecoder(big, "SOFT16", device=dev)
     require(dec_b.backend == "plane", f"Cassini took the {dec_b.backend} "
                                       f"backend on the card")
-    for name in plane.LAUNCHES:
-        plane.LAUNCHES[name] = 0
+    reset_counts()
     bits_b, final_err_b, acc_b = dec_b.decode(syms_b, Nb)
     state_b = dec_b.reset(Bb)
     cuts_b = (0, 701, 1402, Tb)        # chunk lengths not multiples of n
@@ -350,11 +618,8 @@ def main() -> None:
     ragged_b = dec_b.chainback(state_b, Nb)
     trunc_b = dec_b.chainback(state_b, Nb, mode="truncated")
     torch.cuda.synchronize()
-    launches.update(plane.LAUNCHES)
-    for name in plane.LAUNCHES:
-        require(launches[name] > 0,
-                f"big-state path did not launch the {name} kernel")
-    exact_b = int((bits_b == data_b).all(dim=1).sum())
+    add_counts(launches, read_counts(), plane.LAUNCHES, "the big-state path")
+    exact_b = exact_frames(bits_b, data_b)
     require(exact_b == Bb, f"only {exact_b} of {Bb} Cassini frames decoded "
                            f"exactly")
     spec_b = dec_b.spec
@@ -381,6 +646,12 @@ def main() -> None:
           f"ragged updates of {np.diff(cuts_b).tolist()} steps agree; "
           f"truncated chainback (block 512, overlap 128) == exact; launches "
           f"{ {k: launches[k] for k in plane.LAUNCHES} }", flush=True)
+
+    # -- phase 3c: the lane path at full size ----------------------------
+    dec_l, syms_l, Nl = phase3c(pt, dev, rng, launches)
+
+    # -- phase 3d: streaming at full size --------------------------------
+    streams = phase3d(pt, dev, rng, launches, args.seed)
 
     # -- phase 4: times on the card --------------------------------------
     ends = torch.zeros(B, dtype=torch.int32, device=dev)
@@ -446,14 +717,49 @@ def main() -> None:
                                                     Nb), PLAIN_REPS, 1)
     decode_ms_b = time_ms(lambda: dec_b.decode(syms_b, Nb))
     rate_b = Bb * Tb * Rb / (decode_ms_b / 1e3)
+    del k_out, rows_b
+
+    # -- phase 4c: the lane path's kernels and the streams ----------------
+    spec_l = dec_l.spec
+    Bl, Rl = syms_l.shape[0], spec_l.R
+    Tl = syms_l.shape[1] // Rl
+    syms3_l = syms_l.reshape(Bl, Tl, Rl)
+    m0_l = torch_core.initial_metrics(spec_l, Bl, 0, dev)
+    ends_l = torch.zeros(Bl, dtype=torch.int32, device=dev)
+    k_out = lane.acs_lane(spec_l, m0_l, syms3_l)
+    p_out = lane.acs_lane_ref(spec_l, m0_l, syms3_l)
+    e = max(max_abs_diff(g, w) for g, w in zip(k_out, p_out))
+    require(e == 0, "lane ACS kernel != plain at the lane path's shape")
+    err["lane_acs"] = max(err["lane_acs"], e)
+    e = max_abs_diff(chainback.chainback(spec_l, k_out[1], ends_l, Nl),
+                     chainback.chainback_ref(spec_l, k_out[1], ends_l, Nl))
+    require(e == 0, "state-order walk kernel != plain at the lane shape")
+    err["chainback"] = max(err["chainback"], e)
+    ms["lane_acs"] = time_ms(lambda: lane.acs_lane(spec_l, m0_l, syms3_l))
+    plain_ms["lane_acs"] = time_ms(
+        lambda: lane.acs_lane_ref(spec_l, m0_l, syms3_l), PLAIN_REPS, 1)
+    transpose_ms = time_ms(lambda: syms3_l.permute(1, 2, 0).contiguous())
+    walk_ms_l = time_ms(lambda: chainback.chainback(spec_l, k_out[1],
+                                                    ends_l, Nl))
+    decode_ms_l = time_ms(lambda: dec_l.decode(syms_l, Nl))
+    rate_l = Bl * Tl * Rl / (decode_ms_l / 1e3)
+    stream_times = []
+    for label, sd, st, block in streams:
+        push_ms = time_ms(lambda: sd.push(st, block))
+        stream_times.append({"stream": label, "route": sd.backend,
+                             "push_ms": push_ms,
+                             "streamed_symbols_per_s":
+                                 block.numel() / (push_ms / 1e3)})
     shapes = {"rotated_acs": f"Voyager SOFT8 B={B} T={T}",
               "chainback": f"Voyager SOFT8 B={B} T={T}",
               "plane_acs": f"Cassini SOFT16 B={Bb} T={Tb}",
               "plane_walk": f"Cassini SOFT16 B={Bb} T={Tb}",
               "plane_walk_trunc": f"Cassini SOFT16 B={Bb} T={Tb}, "
-                                  f"block 512 overlap 128"}
+                                  f"block 512 overlap 128",
+              "lane_acs": f"Basic K=5 SOFT16 B={Bl} T={Tl}"}
     for name in KERNELS:
-        plain_reps = PLAIN_REPS if name.startswith("plane") else REPS
+        plain_reps = REPS if name in ("rotated_acs", "chainback") \
+            else PLAIN_REPS
         print(f"phase4 {name}: kernel {ms[name]:.4f} ms (median of {REPS}), "
               f"plain {plain_ms[name]:.4f} ms (median of {plain_reps}), "
               f"{shapes[name]}, on {card}", flush=True)
@@ -463,6 +769,17 @@ def main() -> None:
     print(f"phase4 decode: {decode_ms_b:.4f} ms = {rate_b:.4e} decoded "
           f"symbols/s (B*T*R / s, Cassini SOFT16 B={Bb} T={Tb}) on {card}",
           flush=True)
+    print(f"phase4 lane ACS symbol transpose (B, T, R) -> (T, R, B): "
+          f"{transpose_ms:.4f} ms; state-order walk kernel {walk_ms_l:.4f} "
+          f"ms; Basic K=5 SOFT16 B={Bl} T={Tl} on {card}", flush=True)
+    print(f"phase4 decode: {decode_ms_l:.4f} ms = {rate_l:.4e} decoded "
+          f"symbols/s (B*T*R / s, Basic K=5 SOFT16 B={Bl} T={Tl}) on {card}",
+          flush=True)
+    for t in stream_times:
+        print(f"phase4 stream {t['stream']} ({t['route']}): "
+              f"{t['push_ms']:.4f} ms per push (median of {REPS}) = "
+              f"{t['streamed_symbols_per_s']:.4e} streamed symbols/s "
+              f"(B*chunk*R / s) on {card}", flush=True)
 
     print(card, flush=True)
     print(json.dumps({"kernels": [
@@ -472,7 +789,10 @@ def main() -> None:
         for name, (src, tpu) in KERNELS.items()],
         "decode_ms": decode_ms, "decoded_symbols_per_s": rate,
         "cassini_decode_ms": decode_ms_b,
-        "cassini_decoded_symbols_per_s": rate_b}), flush=True)
+        "cassini_decoded_symbols_per_s": rate_b,
+        "lane_decode_ms": decode_ms_l,
+        "lane_decoded_symbols_per_s": rate_l,
+        "streams": stream_times}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -185,14 +185,13 @@ def test_capacity_and_argument_errors():
 
 
 def test_cuda_device_outside_the_class_raises_not_implemented():
-    """No CUDA kernel yet for S < 64 (lane kernel), and none for
-    S > 65536 (a frame's metrics exceed the shared memory of a cluster of
-    two blocks): the decoder refuses at construction instead of running a
-    plain version on the card, which stays for the CPU.  Cassini
-    (S = 16384) takes the plane kernels.  No card is touched."""
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        pt.ViterbiDecoder(pt.get_code("Basic K=3 R=1/2"), "SOFT8",
-                          device="cuda")
+    """No CUDA kernel for S > 65536 (a frame's metrics exceed the shared
+    memory of a cluster of two blocks): the decoder refuses at
+    construction instead of running a plain version on the card, which
+    stays for the CPU.  S < 64 takes the lane kernel and Cassini
+    (S = 16384) the plane kernels.  No card is touched."""
+    assert pt.ViterbiDecoder(pt.get_code("Basic K=3 R=1/2"), "SOFT8",
+                             device="cuda").backend == "lane"
     k18 = pt.CodeSpec("K=18", 18, ((1 << 17) | 0o12345, (1 << 17) | 0o7651))
     with pytest.raises(NotImplementedError, match="S <= 65536"):
         pt.ViterbiDecoder(k18, "SOFT8", device="cuda")
@@ -206,9 +205,11 @@ def test_cuda_device_outside_the_class_raises_not_implemented():
 @pytest.mark.parametrize("name,mode", [("Basic K=5 R=1/2", "SOFT16"),
                                        ("Basic K=3 R=1/2", "HARD8")])
 def test_small_codes_use_the_plain_scan_on_the_cpu(name, mode):
+    """S < 64 takes the lane backend, whose kernel's plain version (the
+    state-order scan) serves CPU tensors."""
     code = pt.get_code(name)
     dec = pt.ViterbiDecoder(code, mode)
-    assert dec.backend == "torch"
+    assert dec.backend == "lane"
     B, T = 2, 30
     syms = _syms(code, mode, B, T, seed=1)
     total_bits = T - (code.K - 1)

@@ -1,6 +1,6 @@
 """Convolutional code specifications and branch-table construction.
 
-A copy of ``viterbidecodercpp_tpu/codes.py`` (NumPy only), so the
+A copy of the JAX package's ``codes.py`` (NumPy only), so the
 PyTorch port never imports the JAX package.  It mirrors the reference's
 compile-time template layer (``viterbi_branch_table.h``,
 ``helpers/common_codes.h``): instead of C++ template parameters

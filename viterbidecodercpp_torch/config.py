@@ -2,7 +2,7 @@
 
 Mirrors ``ViterbiDecoder_Config`` (viterbi_decoder_config.h:11-18) plus the
 SOFT16 / SOFT8 / HARD8 factories (helpers/decode_type.h:21-64); a copy of
-``viterbidecodercpp_tpu/config.py``.  The metric width is emulated on
+the JAX package's ``config.py``.  The metric width is emulated on
 int32 inside one kernel rather than a separate hand-written kernel per
 width; the config also records which *arithmetic semantics* to emulate:
 

@@ -1,6 +1,6 @@
 // Batched traceback walk over packed decision rows (Hopper).
 //
-// Replaces the TPU kernel viterbidecodercpp_tpu/ops/chainback_pallas.py
+// Replaces the JAX package's TPU kernel ops/chainback_pallas.py
 // (_make_kernel, launched by _chainback_padded; wrapped by
 // chainback_pallas and walk_rows).  It computes what that kernel does:
 // one walk state per frame, rows newest to oldest; in slot order the

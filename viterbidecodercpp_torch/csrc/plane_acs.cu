@@ -1,6 +1,6 @@
 // Plane add-compare-select for 8192 <= S <= 65536 states (Hopper).
 //
-// Replaces the TPU kernel viterbidecodercpp_tpu/ops/bigstate_pallas.py
+// Replaces the JAX package's TPU kernel ops/bigstate_pallas.py
 // (_make_kernel, launched by _acs_plane_padded) and computes exactly what
 // it computes: the rotated in-place schedule - logical state s at slot
 // rotr_n(s, t) after t steps (n = K-1), so at phase phi slot q pairs with

@@ -1,6 +1,6 @@
 // Frame-major traceback walk over plane decision rows (Hopper).
 //
-// Replaces the TPU kernel viterbidecodercpp_tpu/ops/bigstate_pallas.py
+// Replaces the JAX package's TPU kernel ops/bigstate_pallas.py
 // (_make_walk_kernel, launched by _walk_frames_padded; wrapped by
 // walk_plane_frames, which chainback_plane uses).  It computes what that
 // kernel does: one walk state per frame, rows newest to oldest; row t

@@ -1,6 +1,6 @@
 // Block-parallel truncated traceback over plane decision rows (Hopper).
 //
-// Replaces the TPU kernel viterbidecodercpp_tpu/ops/bigstate_pallas.py
+// Replaces the JAX package's TPU kernel ops/bigstate_pallas.py
 // (_make_walk_trunc_kernel, launched by _walk_trunc_padded; wrapped by
 // chainback_plane_truncated) and reproduces its bits exactly, cold starts
 // included.  With total_rows = total_bits + n and L = block, O = overlap,

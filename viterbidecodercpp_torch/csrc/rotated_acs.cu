@@ -1,6 +1,6 @@
 // Rotated in-place add-compare-select for 64 <= S <= 4096 states (Hopper).
 //
-// Replaces the TPU kernel viterbidecodercpp_tpu/ops/rotated_pallas.py
+// Replaces the JAX package's TPU kernel ops/rotated_pallas.py
 // (_make_kernel, launched by _acs_rotated_padded) and computes exactly
 // what it computes: logical state s lives at slot rotr_n(s, t) after t
 // steps (n = K-1), so at phase phi = t mod n slot p pairs with slot

@@ -1,5 +1,5 @@
 """Public decoder API: an explicit decode carry + a reference-shaped
-wrapper (the port of ``viterbidecodercpp_tpu/decoder.py``).
+wrapper (the port of the JAX package's ``decoder.py``).
 
 The reference exposes a stateful core (``ViterbiDecoder_Core``:
 ``reset`` / ``update`` / ``chainback`` / ``get_error``,
@@ -17,10 +17,12 @@ count S = 2**(K-1):
     slot-order traceback walk (ops/rotated.py, ops/chainback.py);
   * 4096 < S <= 65536 (K = 14..17): the plane ACS kernel and the plane
     walks, exact or truncated (ops/plane.py);
-  * otherwise: the plain state-order scan (ops/torch_core.py) on the
-    CPU; on a CUDA device ``NotImplementedError`` (S < 64 until the lane
-    kernel is ported; S > 65536 because one frame's metrics no longer
-    fit the shared memory of a cluster of two blocks).
+  * S <= 32 (K = 2..6): the lane ACS kernel and the state-order walk
+    (ops/lane.py, ops/chainback.py);
+  * otherwise (S > 65536): the plain state-order scan
+    (ops/torch_core.py) on the CPU; on a CUDA device
+    ``NotImplementedError``, because one frame's metrics no longer fit
+    the shared memory of a cluster of two blocks.
 
 The kernel backends launch CUDA kernels on a CUDA device and run their
 plain versions on the CPU.
@@ -36,10 +38,10 @@ import torch
 
 from .codes import CodeSpec
 from .config import DecoderConfig, DecodeType, get_decode_config
-from .ops import bigstate, plane, rotated, torch_core
+from .ops import bigstate, lane, plane, rotated, torch_core
 from .ops import chainback as chainback_ops
 
-__all__ = ["DecoderState", "ViterbiDecoder"]
+__all__ = ["DecoderState", "ViterbiDecoder", "select_backend"]
 
 _FIELDS = ("metrics", "decisions", "accumulated_error", "bit_cursor",
            "row_rots")
@@ -49,12 +51,12 @@ _FIELDS = ("metrics", "decisions", "accumulated_error", "bit_cursor",
 class DecoderState:
     """The resumable decode carry, with the JAX ``DecoderState``'s fields.
 
-    ``decisions`` is (rows, W, B) int32 words on the rotated and torch
-    backends and (B, rows_phys, W/128, 128) on the plane backend, whose
-    row count rounds up to ``plane.time_block_rows``.  ``update`` writes
-    the decision rows and ``row_rots`` of its chunk in place (the JAX
-    package donates the carry to the same effect): keep using the state
-    it returns, not the one passed in.
+    ``decisions`` is (rows, W, B) int32 words on the rotated, lane and
+    torch backends and (B, rows_phys, W/128, 128) on the plane backend,
+    whose row count rounds up to ``plane.time_block_rows``.  ``update``
+    writes the decision rows and ``row_rots`` of its chunk in place (the
+    JAX package donates the carry to the same effect): keep using the
+    state it returns, not the one passed in.
     """
 
     metrics: torch.Tensor            # (S, B) int32, state-major
@@ -108,6 +110,47 @@ class DecoderState:
             return cls.from_numpy({f: z[f] for f in z.files}, device)
 
 
+BACKENDS = ("rotated", "plane", "lane", "torch")
+
+
+def select_backend(spec: torch_core.StaticSpec, device: torch.device,
+                   backend: str = "auto") -> str:
+    """Resolve ``backend`` for a spec on a device (routing by state count,
+    see the module docstring); raises for a named backend outside its
+    class and, on a CUDA device, for S > 65536."""
+    S = spec.S
+    in_class = rotated.ROTATED_MIN_STATES <= S <= torch_core.MAX_LANE_STATES
+    if backend == "auto":
+        if in_class:
+            return "rotated"
+        if plane.supports(spec):
+            return "plane"
+        if lane.supports(spec):
+            return "lane"
+        if device.type == "cpu":
+            return "torch"
+        raise NotImplementedError(
+            f"no CUDA kernel for S={S}: the plane ACS kernel keeps one "
+            f"frame's int32 metrics in the shared memory of a block or a "
+            f"cluster of two (227 KB each), which bounds it to S <= "
+            f"{plane.MAX_PLANE_STATES}; see ROADMAP.md queue 3. The CPU "
+            f"runs the plain scan")
+    if backend not in BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}")
+    if backend == "rotated" and not in_class:
+        raise ValueError(f"the rotated backend covers "
+                         f"{rotated.ROTATED_MIN_STATES} <= S <= "
+                         f"{torch_core.MAX_LANE_STATES}, got S={S}")
+    if backend == "plane" and not plane.supports(spec):
+        raise ValueError(f"the plane backend covers "
+                         f"{torch_core.MAX_LANE_STATES} < S <= "
+                         f"{plane.MAX_PLANE_STATES}, got S={S}")
+    if backend == "lane" and not lane.supports(spec):
+        raise ValueError(f"the lane backend covers S <= "
+                         f"{lane.MAX_LANE_KERNEL_STATES}, got S={S}")
+    return backend
+
+
 class ViterbiDecoder:
     """Batched Viterbi decoder for one (code, config) pair.
 
@@ -122,12 +165,14 @@ class ViterbiDecoder:
         the CUDA kernels on a CUDA device, their plain versions on the CPU.
       * ``"plane"``   - plane ACS + plane walks (4096 < S <= 65536), the
         same way.
+      * ``"lane"``    - lane ACS + state-order walk (S <= 32), the same
+        way.
       * ``"torch"``   - the plain state-order scan, on any device (and
         the rotated-layout scan of ops/bigstate.py for ``decode`` with
         S > 4096).
-      * ``"auto"``    - ``"rotated"`` or ``"plane"`` where S allows it;
-        else ``"torch"`` on the CPU and ``NotImplementedError`` on a CUDA
-        device.
+      * ``"auto"``    - ``"rotated"``, ``"plane"`` or ``"lane"`` where S
+        allows it; else ``"torch"`` on the CPU and
+        ``NotImplementedError`` on a CUDA device.
 
     Input contract: soft symbols lie in [soft_decision_low,
     soft_decision_high]; the decoder clamps inputs to that range
@@ -146,41 +191,11 @@ class ViterbiDecoder:
         self.device = torch.device(device)
         if self.device.type not in ("cpu", "cuda"):
             raise ValueError(f"unsupported device {self.device}")
-        S = self.spec.S
-        in_class = (rotated.ROTATED_MIN_STATES <= S
-                    <= torch_core.MAX_LANE_STATES)
-        if backend == "auto":
-            if in_class:
-                backend = "rotated"
-            elif plane.supports(self.spec):
-                backend = "plane"
-            elif self.device.type == "cpu":
-                backend = "torch"
-            elif S < rotated.ROTATED_MIN_STATES:
-                raise NotImplementedError(
-                    f"no CUDA kernel for S={S} yet: see ROADMAP.md queue 1 "
-                    f"item 7 (lane kernel, S < 64); the CPU runs the plain "
-                    f"scan")
-            else:
-                raise NotImplementedError(
-                    f"no CUDA kernel for S={S}: the plane ACS kernel keeps "
-                    f"one frame's int32 metrics in the shared memory of a "
-                    f"block or a cluster of two (227 KB each), which bounds "
-                    f"it to S <= {plane.MAX_PLANE_STATES}; see ROADMAP.md "
-                    f"queue 3. The CPU runs the plain scan")
-        if backend not in ("rotated", "plane", "torch"):
-            raise ValueError(f"unknown backend {backend!r}")
-        if backend == "rotated" and not in_class:
-            raise ValueError(f"the rotated backend covers "
-                             f"{rotated.ROTATED_MIN_STATES} <= S <= "
-                             f"{torch_core.MAX_LANE_STATES}, got S={S}")
-        if backend == "plane" and not plane.supports(self.spec):
-            raise ValueError(f"the plane backend covers "
-                             f"{torch_core.MAX_LANE_STATES} < S <= "
-                             f"{plane.MAX_PLANE_STATES}, got S={S}")
-        self.backend = backend
+        self.backend = backend = select_backend(self.spec, self.device,
+                                                backend)
         self._rotated = backend == "rotated"
         self._plane = backend == "plane"
+        self._lane = backend == "lane"
         self._traceback_length = int(traceback_length)
 
     # -- capacity ---------------------------------------------------------
@@ -201,7 +216,8 @@ class ViterbiDecoder:
     def reset(self, batch: int, starting_state: int = 0) -> DecoderState:
         """Fresh carry for ``batch`` frames (viterbi_decoder_core.h:202-211).
         Decision rows are (rows, W, B) words, slot order on the rotated
-        backend (with ``row_rots``) and state order on the torch backend,
+        backend (with ``row_rots``) and state order on the lane and torch
+        backends,
         or a (B, rows_phys, W/128, 128) plane buffer (with ``row_rots``)
         on the plane backend."""
         return self._reset(batch, starting_state, zero_fill=True)
@@ -288,6 +304,9 @@ class ViterbiDecoder:
             if self._rotated:
                 metrics, packed, acc = rotated.acs_rotated(
                     spec, state.metrics.contiguous(), syms.contiguous())
+            elif self._lane:
+                metrics, packed, acc = lane.acs_lane(
+                    spec, state.metrics.contiguous(), syms.contiguous())
             else:
                 metrics, packed, acc = torch_core.acs_scan(
                     spec, state.metrics, syms)
@@ -351,6 +370,9 @@ class ViterbiDecoder:
             return chainback_ops.chainback(
                 self.spec, state.decisions, ends, total_bits,
                 slot_order=True, rots=state.row_rots)
+        if self._lane:
+            return chainback_ops.chainback(self.spec, state.decisions, ends,
+                                           total_bits, slot_order=False)
         return torch_core.chainback_scan(self.spec, state.decisions, ends,
                                          total_bits)
 

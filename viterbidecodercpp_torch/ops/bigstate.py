@@ -1,5 +1,5 @@
 """Rotated-layout one-shot decode for big state counts, plain torch (the
-port of ``viterbidecodercpp_tpu/ops/bigstate.py``).
+port of the JAX package's ``ops/bigstate.py``).
 
 This is the JAX package's XLA path for S > 4096: ``ViterbiDecoder``
 with ``backend="torch"`` decodes such codes through :func:`decode_big`.

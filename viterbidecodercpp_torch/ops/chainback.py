@@ -1,5 +1,5 @@
 """Batched traceback walk (the port of
-``viterbidecodercpp_tpu/ops/chainback_pallas.py``).
+the JAX package's ``ops/chainback_pallas.py``).
 
 Every frame walks its packed decision rows newest to oldest with
 ``s <- (s >> 1) | (d << (K-2))``; row t carries data bit t - (K-1)

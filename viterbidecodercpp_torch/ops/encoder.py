@@ -1,5 +1,5 @@
 """Batched convolutional encoding on tensors (the port of
-``viterbidecodercpp_tpu/ops/encoder.py:86-141``).
+the JAX package's ``ops/encoder.py:86-141``).
 
 Encoding is closed form: output bit j at time t is ``parity(G[j] & reg_t)``
 with ``reg_t`` holding input bits ``t-K+1 .. t`` (newest at the LSB), so

@@ -1,5 +1,5 @@
 """Plane ACS and plane walks for big state counts, S >= 8192 (the port of
-``viterbidecodercpp_tpu/ops/bigstate_pallas.py``).
+the JAX package's ``ops/bigstate_pallas.py``).
 
 Each frame's S = 2**(K-1) metrics form a plane of S/128 rows x 128
 lanes.  The ACS is the rotated in-place schedule of ops/rotated.py

@@ -1,5 +1,5 @@
 """Rotated in-place ACS for 64 <= S <= 4096 (the port of
-``viterbidecodercpp_tpu/ops/rotated_pallas.py``).
+the JAX package's ``ops/rotated_pallas.py``).
 
 Logical state s lives at slot ``rotr_n(s, t)`` after t steps of one call
 (n = K-1), so the butterfly writes in place and each slot needs only two

@@ -1,6 +1,6 @@
 """Batched PyTorch implementation of the Viterbi trellis (plain path).
 
-The port's twin of ``viterbidecodercpp_tpu/ops/jax_core.py``: plain
+The port's twin of the JAX package's ``ops/jax_core.py``: plain
 torch ops over a Python loop on T, batched over frames, on any device.
 It is the port's executable specification in *state order* - the
 ``ViterbiDecisionBits`` layout - and so an independent second reference
@@ -18,7 +18,7 @@ like):
     packing sums in int64 and folds back with a two's-complement wrap.
   * Symbols are (B, T, R) int32, frame-major (the user layout).
 
-Reference semantics matched exactly (see viterbidecodercpp_tpu/ops/
+Reference semantics matched exactly (see the JAX package's ops/
 numpy_ref.py for the oracle): ACS recursion viterbi_decoder_scalar.h:
 58-135, renormalisation gated on the state-0 metric
 viterbi_decoder_scalar.h:48, chainback viterbi_decoder_core.h:214-236.
@@ -26,6 +26,7 @@ viterbi_decoder_scalar.h:48, chainback viterbi_decoder_core.h:214-236.
 
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -96,8 +97,10 @@ def make_static_spec(code: CodeSpec, config: DecoderConfig) -> StaticSpec:
     )
 
 
+@functools.lru_cache(maxsize=64)
 def symmetric_amplitude(spec: StaticSpec) -> Optional[int]:
-    """A when the branch table is {-A, +A}-valued, else None."""
+    """A when the branch table is {-A, +A}-valued, else None (cached: at
+    Cassini the table has 49,152 entries and every plane ACS call asks)."""
     bt = np.asarray(spec.bt)
     amp = int(bt.max())
     if amp > 0 and int(bt.min()) == -amp and np.isin(bt, (-amp, amp)).all():
