@@ -10,11 +10,15 @@ Phases, in order; any failure raises and exits non-zero:
    ``viterbidecodercpp_torch/csrc`` with nvcc for sm_90a, one nvcc
    process per source, all started together (into
    ``viterbidecodercpp_torch/_build/``), and prints the build times.
-2. Kernel vs plain on the card, bit-exact: the rotated ACS kernel
-   against its plain version for the five rotated-class registry codes x
-   SOFT16/SOFT8/HARD8 x saturating/wrapping at B=64, T=301, plus a
-   random K=13 R=1/2 code (S=4096); the walk kernel against its plain
-   version on the same rows, slot order with streamed rotations.
+2. Kernel vs plain on the card, bit-exact, across every dispatch boundary
+   of the rotated ACS (warp design for S <= 1024 and R <= 5, block design
+   above) and the walk (tiled for W <= 8, dependent loads above): the five
+   rotated-class registry codes x SOFT16/SOFT8/HARD8 x
+   saturating/wrapping, plus random codes at K=8, 10, 11, 12, 13 (R=2),
+   K=8 R=5, K=10 R=6 and K=9 R=16, at B=61 and T in {1, n-1, 301} from
+   off-reset metrics, symbols past the soft range; on the same rows the
+   walk in slot order (streamed and one-shot rotations, with and without
+   a valid mask) and in state order (with and without a valid mask).
 2b. The same for the plane class: the plane ACS kernel on Cassini x the
    three regimes x both arithmetic modes and random K=14, K=16 and K=17
    R=1/2 codes at B=20, T=301 from off-reset metrics (metrics, packed rows,
@@ -52,12 +56,18 @@ Phases, in order; any failure raises and exits non-zero:
    Voyager on an AWGN channel (utils/testsig.py): the bit-error delta of
    windows 64, 128 and 256 against the exact decode of the same symbols.
 4. Times on the card (CUDA events, warm-up, median): each kernel and its
-   plain version at its path's full-size shape, each whole decode in
-   decoded symbols/s (B*T*R / s), and each stream's median ms per push
-   and streamed symbols/s (B*chunk*R / s).
+   plain version at its path's full-size shape beside its bound (the
+   larger of its bytes over the HBM rate and its int32 operations over
+   the int32 rate, counted from the shapes) and its share of the bound,
+   each whole decode in decoded symbols/s (B*T*R / s), and each stream's
+   median ms per push (of 41: a push is host-bound) and streamed
+   symbols/s (B*chunk*R / s).
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
-is a JSON object with one entry per kernel.  Imports nothing of JAX.
+is a JSON object with one entry per kernel (launches on the main paths,
+largest difference from the plain version, ms, plain_ms, bound_ms,
+bound_by, bound_share, library_ms) and the decode and stream times.
+Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -78,6 +88,7 @@ MODES = ("SOFT16", "SOFT8", "HARD8")
 ARITHS = ("saturating", "wrapping")
 REPS = 7
 PLAIN_REPS = 3
+PUSH_REPS = 41
 # kernel -> (source, the TPU kernel it replaces)
 KERNELS = {
     "rotated_acs": ("viterbidecodercpp_torch/csrc/rotated_acs.cu",
@@ -101,10 +112,48 @@ STREAMS = (
      ("lane_acs", "chainback")),
     ("Cassini", "SOFT16", 512, 280, 56, "plane", ("plane_acs", "plane_walk")),
 )
+# phase 2's random codes (K, R, mode) beside the registry's K=7 and K=9:
+# each n of the class and each group count of the ACS's branch patterns
+ROTATED_RANDOM = ((8, 2, "SOFT8"), (10, 2, "SOFT16"), (11, 2, "HARD8"),
+                  (12, 2, "SOFT8"), (13, 2, "SOFT8"), (8, 5, "SOFT8"),
+                  (10, 6, "SOFT16"), (9, 16, "SOFT8"))
 SWEEP_EBNO_DB = 3.0
 SWEEP_WINDOWS = (64, 128, 256)
 SWEEP_CHUNK = 32
 SWEEP_END_BITS = 64
+
+
+# Peak rates of one H100 SXM (NVIDIA's data sheet; the Hopper white paper
+# for the SM layout): HBM3 at 3.35 TB/s, and int32 ALU work at 132 SMs x
+# 64 INT32 lanes x 1.98 GHz boost clock.  The kernels do int32 work only.
+HBM_BYTES_PER_S = 3.35e12
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+# int32 operations a trellis state costs per step: two adds, two clamps, a
+# compare, a select, a share of the decision word, and ~R for the branch
+# metric (2R per butterfly); a walk row costs ~8 per frame
+ACS_OPS = 8
+WALK_OPS = 8
+
+
+def acs_bound(S: int, B: int, T: int, R: int, W: int) -> tuple:
+    """(ms, resource) of an ACS call: metrics in and out, symbols in,
+    decision words and acc out."""
+    nbytes = 4 * (2 * S * B + B * T * R + T * W * B + B)
+    return bound(B * T * S * (ACS_OPS + R), nbytes)
+
+
+def walk_bound(rows: int, B: int, out_bits: int, meta: int) -> tuple:
+    """(ms, resource) of a walk: one word per row per frame (the word the
+    path needs), ``meta`` int32 per row (rotation, valid), the start
+    states, and ``out_bits`` bytes out per frame."""
+    nbytes = 4 * rows * B + 4 * meta * rows + 4 * B + out_bits * B
+    return bound(rows * B * WALK_OPS, nbytes)
+
+
+def bound(ops: float, nbytes: float) -> tuple:
+    t_ops, t_bytes = ops / INT32_OPS_PER_S, nbytes / HBM_BYTES_PER_S
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
 
 
 class SmokeFailure(RuntimeError):
@@ -151,8 +200,9 @@ def card_line() -> str:
 
 
 def phase2(pt, torch_core, rotated, chainback, dev, rng) -> dict:
-    """Kernel vs plain at B=64, T=301 across the class; returns the
-    largest difference seen per kernel (0 when bit-exact)."""
+    """Kernel vs plain across the rotated class and each dispatch
+    boundary of the two kernels; returns the largest difference seen per
+    kernel (0 when bit-exact)."""
     err = {"rotated_acs": 0, "chainback": 0}
     specs = []
     for name in ROTATED_CODES:
@@ -163,47 +213,64 @@ def phase2(pt, torch_core, rotated, chainback, dev, rng) -> dict:
                                            arith=arith)
                 specs.append((f"{name} {mode} {arith}",
                               torch_core.make_static_spec(code, cfg)))
-    K = 13
-    G = tuple(int(rng.randint(0, 1 << K)) | 1 | (1 << (K - 1))
-              for _ in range(2))
-    big = pt.CodeSpec("random K=13 R=1/2", K, G)
-    specs.append((f"{big.name} G={G} SOFT8 saturating",
-                  torch_core.make_static_spec(
-                      big, pt.get_decode_config(pt.DecodeType.SOFT8, 2))))
-    B, T = 64, 301
+    # every n of the class (the ACS is a template on n up to the warp
+    # design's S = 1024, the block design above; the walk's ring takes
+    # W <= 8) and every group count of the branch patterns (5 rates each)
+    for K, R, mode in ROTATED_RANDOM:
+        c = random_code(pt, K, rng, R)
+        specs.append((f"{c.name} {mode} saturating",
+                      torch_core.make_static_spec(
+                          c, pt.get_decode_config(pt.DecodeType(mode), R))))
+    B = 61                        # not a multiple of any frames-per-block
     for label, spec in specs:
-        syms = torch.as_tensor(
-            rng.randint(spec.soft_low, spec.soft_high + 1,
-                        (B, T, spec.R)).astype(np.int32), device=dev)
-        m0 = torch_core.initial_metrics(spec, B, 0, dev)
-        # start off the reset state so every slot carries a live metric
-        m0 = torch.minimum(m0, torch.as_tensor(
-            rng.randint(0, spec.metric_max + 1, m0.shape).astype(np.int32),
-            device=dev))
-        got = rotated.acs_rotated(spec, m0, syms)
-        torch.cuda.synchronize()
-        want = rotated.acs_rotated_ref(spec, m0, syms)
-        e = max(max_abs_diff(g, w) for g, w in zip(got, want))
-        err["rotated_acs"] = max(err["rotated_acs"], e)
-        require(e == 0, f"rotated ACS kernel != plain for {label} (max "
-                        f"abs diff {e})")
         n = spec.K - 1
-        rots = torch.as_tensor(rng.randint(0, n, T).astype(np.int32),
-                               device=dev)
-        ends = torch.as_tensor(rng.randint(0, spec.S, B).astype(np.int32),
-                               device=dev)
-        walk = chainback.chainback(spec, got[1], ends, T - n,
-                                   slot_order=True, rots=rots)
-        torch.cuda.synchronize()
-        walk_ref = chainback.chainback_ref(spec, got[1], ends, T - n,
+        for T in (1, n - 1, 301):
+            syms = torch.as_tensor(
+                rng.randint(spec.soft_low - 2, spec.soft_high + 3,
+                            (B, T, spec.R)).astype(np.int32), device=dev)
+            m0 = torch_core.initial_metrics(spec, B, 0, dev)
+            # start off the reset state so every slot carries a live metric
+            m0 = torch.minimum(m0, torch.as_tensor(
+                rng.randint(0, spec.metric_max + 1, m0.shape)
+                .astype(np.int32), device=dev))
+            got = rotated.acs_rotated(spec, m0, syms)
+            torch.cuda.synchronize()
+            want = rotated.acs_rotated_ref(spec, m0, syms)
+            e = max(max_abs_diff(g, w) for g, w in zip(got, want))
+            err["rotated_acs"] = max(err["rotated_acs"], e)
+            require(e == 0, f"rotated ACS kernel != plain for {label} T={T} "
+                            f"(max abs diff {e})")
+            rots = torch.as_tensor(rng.randint(0, n, T).astype(np.int32),
+                                   device=dev)
+            valid = torch.as_tensor((rng.rand(T) > 0.2).astype(np.int32),
+                                    device=dev)
+            starts = torch.as_tensor(rng.randint(0, spec.S, B)
+                                     .astype(np.int32), device=dev)
+            for kw in ({"slot_order": True, "rots": rots},
+                       {"slot_order": True},
+                       {"slot_order": True, "rots": rots, "valid": valid},
+                       {}, {"valid": valid}):
+                walk = chainback.walk_rows(spec, got[1], starts, **kw)
+                torch.cuda.synchronize()
+                e = max_abs_diff(walk, chainback.walk_rows_ref(
+                    spec, got[1], starts, **kw))
+                err["chainback"] = max(err["chainback"], e)
+                require(e == 0, f"walk kernel != plain for {label} T={T} "
+                                f"{sorted(kw)}")
+            if T > n:
+                walk = chainback.chainback(spec, got[1], starts, T - n,
                                            slot_order=True, rots=rots)
-        e = max_abs_diff(walk, walk_ref)
-        err["chainback"] = max(err["chainback"], e)
-        require(e == 0, f"walk kernel != plain for {label}")
-    print(f"phase2 ok: {len(specs)} specs at B={B} T={T}, kernel == plain "
-          f"bit-for-bit (ACS metrics/rows/acc and slot-order walk)",
-          flush=True)
+                torch.cuda.synchronize()
+                e = max_abs_diff(walk, chainback.chainback_ref(
+                    spec, got[1], starts, T - n, slot_order=True, rots=rots))
+                err["chainback"] = max(err["chainback"], e)
+                require(e == 0, f"chainback kernel != plain for {label}")
+    print(f"phase2 ok: {len(specs)} specs (K=7..13, R up to 16) at B={B}, "
+          f"T in (1, n-1, 301), kernel == plain bit-for-bit (ACS "
+          f"metrics/rows/acc; walk in slot order with streamed and one-shot "
+          f"rotations, in state order, with a valid mask)", flush=True)
     return err
+
 
 def random_code(pt, K: int, rng, R: int = 2):
     G = tuple(int(rng.randint(0, 1 << K)) | 1 | (1 << (K - 1))
@@ -745,11 +812,23 @@ def main() -> None:
     rate_l = Bl * Tl * Rl / (decode_ms_l / 1e3)
     stream_times = []
     for label, sd, st, block in streams:
-        push_ms = time_ms(lambda: sd.push(st, block))
+        push_ms = time_ms(lambda: sd.push(st, block), PUSH_REPS, 5)
         stream_times.append({"stream": label, "route": sd.backend,
                              "push_ms": push_ms,
                              "streamed_symbols_per_s":
                                  block.numel() / (push_ms / 1e3)})
+    rows_w = N + code.K - 1                  # the chainback's rows
+    nb = Nb + big.K - 1
+    tiles = range(0, nb, 512)                # the truncated walk's tiles
+    bounds = {
+        "rotated_acs": acs_bound(spec.S, B, T, spec.R, spec.W),
+        "chainback": walk_bound(rows_w, B, rows_w, 1),
+        "plane_acs": acs_bound(spec_b.S, Bb, Tb, Rb, spec_b.W),
+        "plane_walk": walk_bound(Tb, Bb, Tb, 0),
+        "plane_walk_trunc": walk_bound(
+            sum(min(b0 + 512 + 128, nb) - b0 for b0 in tiles), Bb, Nb, 0),
+        "lane_acs": acs_bound(spec_l.S, Bl, Tl, Rl, spec_l.W),
+    }
     shapes = {"rotated_acs": f"Voyager SOFT8 B={B} T={T}",
               "chainback": f"Voyager SOFT8 B={B} T={T}",
               "plane_acs": f"Cassini SOFT16 B={Bb} T={Tb}",
@@ -760,9 +839,11 @@ def main() -> None:
     for name in KERNELS:
         plain_reps = REPS if name in ("rotated_acs", "chainback") \
             else PLAIN_REPS
+        bms, by = bounds[name]
         print(f"phase4 {name}: kernel {ms[name]:.4f} ms (median of {REPS}), "
               f"plain {plain_ms[name]:.4f} ms (median of {plain_reps}), "
-              f"{shapes[name]}, on {card}", flush=True)
+              f"bound {bms:.6f} ms ({by}), share of the bound "
+              f"{bms / ms[name]:.4f}, {shapes[name]}, on {card}", flush=True)
     print(f"phase4 decode: {decode_ms:.4f} ms = {rate:.4e} decoded "
           f"symbols/s (B*T*R / s, Voyager SOFT8 B={B} T={T}) on {card}",
           flush=True)
@@ -777,7 +858,7 @@ def main() -> None:
           flush=True)
     for t in stream_times:
         print(f"phase4 stream {t['stream']} ({t['route']}): "
-              f"{t['push_ms']:.4f} ms per push (median of {REPS}) = "
+              f"{t['push_ms']:.4f} ms per push (median of {PUSH_REPS}) = "
               f"{t['streamed_symbols_per_s']:.4e} streamed symbols/s "
               f"(B*chunk*R / s) on {card}", flush=True)
 
@@ -785,7 +866,11 @@ def main() -> None:
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
          "launches": launches[name], "max_abs_err": err[name],
-         "ms": ms[name], "plain_ms": plain_ms[name]}
+         "ms": ms[name], "plain_ms": plain_ms[name],
+         "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
+         "bound_share": bounds[name][0] / ms[name],
+         # no single PyTorch call computes an ACS or a traceback
+         "library_ms": None}
         for name, (src, tpu) in KERNELS.items()],
         "decode_ms": decode_ms, "decoded_symbols_per_s": rate,
         "cassini_decode_ms": decode_ms_b,

@@ -75,7 +75,7 @@ def test_decoder_torch_backend_decodes_through_decode_big():
     decode_big (as the JAX xla backend's does) and equals both the JAX
     decoder and the port's own state-order reset/update/chainback."""
     code = pt.get_code("Cassini")
-    dec = pt.ViterbiDecoder(code, "SOFT8", backend="torch")
+    dec = pt.ViterbiDecoder(code, "SOFT8", backend="torch", device="cpu")
     assert dec.backend == "torch"
     rng = np.random.RandomState(6)
     B, T = 2, 30

@@ -113,6 +113,19 @@ def test_out_of_range_end_state_reads_zero_words():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+def test_walk_design_by_row_width():
+    """The tiled walk takes rows of up to 8 words (the lane path's W=1,
+    Voyager's 2, the CDMA codes' 8); wider rows keep the walk that loads
+    the one word the state selects."""
+    widths = {name: _specs(name)[1].W
+              for name in ("Basic K=5 R=1/2", "Voyager", "CDMA 2000")}
+    assert widths == {"Basic K=5 R=1/2": 1, "Voyager": 2, "CDMA 2000": 8}
+    assert [chainback.walk_design(w) for w in (1, 2, 4, 8, 16, 32, 64, 128)] \
+        == ["tiled"] * 4 + ["chain"] * 4
+    with pytest.raises(ValueError, match="power of two"):
+        chainback.walk_design(3)
+
+
 def test_bad_walk_inputs_raise():
     _, ts = _specs("Voyager")
     packed = torch.zeros((10, ts.W, 1), dtype=torch.int32)

@@ -8,6 +8,8 @@ renorm accumulators, slot-order decision rows and row_rots.  Checkpoints
 cross between the packages mid-stream in both directions.
 """
 
+import inspect
+
 import numpy as np
 import pytest
 import torch
@@ -55,13 +57,13 @@ def _port_state_from_jax(state):
               "row_rots")
     return pt.DecoderState.from_numpy(
         {f: np.asarray(getattr(state, f)) for f in fields
-         if getattr(state, f) is not None})
+         if getattr(state, f) is not None}, device="cpu")
 
 
 @pytest.mark.parametrize("name,mode", ROTATED)
 def test_decode_matches_jax_pallas_and_xla(name, mode):
     code = pt.get_code(name)
-    dec = pt.ViterbiDecoder(code, mode)
+    dec = pt.ViterbiDecoder(code, mode, device="cpu")
     assert dec.backend == "rotated"
     jp = vt.ViterbiDecoder(vt.get_code(name), mode, backend="pallas")
     jx = vt.ViterbiDecoder(vt.get_code(name), mode, backend="xla")
@@ -85,7 +87,7 @@ def test_ragged_updates_match_jax_rows_and_rots(name, cuts):
     rotation schedule, row_rots records (i+1) mod n per chunk row, and
     the slot-order rows are the JAX kernel's, word for word."""
     code = pt.get_code(name)
-    dec = pt.ViterbiDecoder(code, "SOFT8", traceback_length=50)
+    dec = pt.ViterbiDecoder(code, "SOFT8", traceback_length=50, device="cpu")
     jdec = vt.ViterbiDecoder(vt.get_code(name), "SOFT8", backend="pallas",
                              traceback_length=50)
     B, T = 2, 50
@@ -109,7 +111,7 @@ def test_ragged_updates_match_jax_rows_and_rots(name, cuts):
 def test_checkpoint_crosses_packages_via_npz(tmp_path, direction):
     name, mode = "CDMA 2000", "SOFT8"
     code = pt.get_code(name)
-    dec = pt.ViterbiDecoder(code, mode, traceback_length=40)
+    dec = pt.ViterbiDecoder(code, mode, traceback_length=40, device="cpu")
     jdec = vt.ViterbiDecoder(vt.get_code(name), mode, backend="pallas",
                              traceback_length=40)
     B, T1, T = 2, 17, 40
@@ -118,7 +120,7 @@ def test_checkpoint_crosses_packages_via_npz(tmp_path, direction):
     f = tmp_path / "state.npz"
     if direction == "jax_to_port":
         jdec.update(jdec.reset(B), syms[:, :T1 * R]).save(f)
-        s = dec.update(pt.DecoderState.load(f), syms[:, T1 * R:])
+        s = dec.update(pt.DecoderState.load(f, device="cpu"), syms[:, T1 * R:])
         bits = dec.chainback(s, total_bits)
     else:
         dec.update(dec.reset(B), syms[:, :T1 * R]).save(f)
@@ -136,7 +138,7 @@ def test_checkpoint_crosses_packages_via_npz(tmp_path, direction):
 def test_checkpoint_crosses_packages_via_numpy_dicts():
     name, mode = "LTE", "HARD8"
     code = pt.get_code(name)
-    dec = pt.ViterbiDecoder(code, mode, traceback_length=45)
+    dec = pt.ViterbiDecoder(code, mode, traceback_length=45, device="cpu")
     jdec = vt.ViterbiDecoder(vt.get_code(name), mode, backend="pallas",
                              traceback_length=45)
     B, T = 2, 45
@@ -151,7 +153,7 @@ def test_checkpoint_crosses_packages_via_numpy_dicts():
     _eq(dec.chainback(s, total_bits), one[0])
     _eq(dec.get_error(s), one[1])
     _eq(s.accumulated_error, one[2])
-    back = pt.DecoderState.from_numpy(s.to_numpy())
+    back = pt.DecoderState.from_numpy(s.to_numpy(), device="cpu")
     for f in ("metrics", "decisions", "accumulated_error", "bit_cursor",
               "row_rots"):
         assert torch.equal(getattr(back, f), getattr(s, f))
@@ -159,7 +161,7 @@ def test_checkpoint_crosses_packages_via_numpy_dicts():
 
 def test_capacity_and_argument_errors():
     code = pt.get_code("Voyager")
-    dec = pt.ViterbiDecoder(code, "SOFT8", traceback_length=10)
+    dec = pt.ViterbiDecoder(code, "SOFT8", traceback_length=10, device="cpu")
     s = dec.reset(1)
     s = dec.update(s, np.zeros((1, 12 * code.R), np.int32))
     with pytest.raises(ValueError, match="overflow"):
@@ -173,15 +175,38 @@ def test_capacity_and_argument_errors():
     with pytest.raises(ValueError, match="unknown chainback mode"):
         dec.chainback(s, 4, mode="fast")
     # a loaded state has no host cursor: the capacity check reads it
-    loaded = pt.DecoderState.from_numpy(s.to_numpy())
+    loaded = pt.DecoderState.from_numpy(s.to_numpy(), device="cpu")
     assert loaded.host_cursor is None
     with pytest.raises(ValueError, match="overflow"):
         dec.update(loaded, np.zeros((1, 5 * code.R), np.int32))
     with pytest.raises(ValueError, match="unknown backend"):
-        pt.ViterbiDecoder(code, "SOFT8", backend="pallas")
+        pt.ViterbiDecoder(code, "SOFT8", backend="pallas", device="cpu")
     with pytest.raises(ValueError, match="rotated backend"):
         pt.ViterbiDecoder(pt.get_code("Basic K=5 R=1/2"), "SOFT8",
-                          backend="rotated")
+                          backend="rotated", device="cpu")
+
+
+def test_entry_points_default_to_the_card():
+    """The decoder, the stream and a loaded state run on the card unless
+    the caller names the CPU.  Construction allocates nothing, so no card
+    is touched; without one, the first allocation raises (no fallback)."""
+    code = pt.get_code("Voyager")
+    dec = pt.ViterbiDecoder(code, "SOFT8")
+    assert dec.device == torch.device("cuda")
+    sd = pt.StreamingDecoder(code, "SOFT8", window=64, chunk=16)
+    assert sd.device == torch.device("cuda")
+    for fn in (pt.ViterbiDecoder.__init__, pt.StreamingDecoder.__init__,
+               pt.DecoderState.from_numpy, pt.DecoderState.load):
+        assert inspect.signature(fn).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            dec.reset(2)
+        with pytest.raises((RuntimeError, AssertionError)):
+            sd.reset(2)
+        with pytest.raises((RuntimeError, AssertionError)):
+            pt.DecoderState.from_numpy(
+                pt.ViterbiDecoder(code, "SOFT8", traceback_length=4,
+                                  device="cpu").reset(2).to_numpy())
 
 
 def test_cuda_device_outside_the_class_raises_not_implemented():
@@ -195,7 +220,7 @@ def test_cuda_device_outside_the_class_raises_not_implemented():
     k18 = pt.CodeSpec("K=18", 18, ((1 << 17) | 0o12345, (1 << 17) | 0o7651))
     with pytest.raises(NotImplementedError, match="S <= 65536"):
         pt.ViterbiDecoder(k18, "SOFT8", device="cuda")
-    assert pt.ViterbiDecoder(k18, "SOFT8").backend == "torch"
+    assert pt.ViterbiDecoder(k18, "SOFT8", device="cpu").backend == "torch"
     assert pt.ViterbiDecoder(pt.get_code("Cassini"), "SOFT8",
                              device="cuda").backend == "plane"
     assert pt.ViterbiDecoder(pt.get_code("Voyager"), "SOFT8",
@@ -208,7 +233,7 @@ def test_small_codes_use_the_plain_scan_on_the_cpu(name, mode):
     """S < 64 takes the lane backend, whose kernel's plain version (the
     state-order scan) serves CPU tensors."""
     code = pt.get_code(name)
-    dec = pt.ViterbiDecoder(code, mode)
+    dec = pt.ViterbiDecoder(code, mode, device="cpu")
     assert dec.backend == "lane"
     B, T = 2, 30
     syms = _syms(code, mode, B, T, seed=1)
@@ -236,7 +261,7 @@ def test_noisy_frames_decode_exactly(name):
     _eq(encoder.bits_to_bytes(bits), data)
     noisy = np.clip(syms.numpy() + rng.randint(-60, 61, syms.shape),
                     -127, 127).reshape(B, -1)
-    dec = pt.ViterbiDecoder(code, "SOFT16")
+    dec = pt.ViterbiDecoder(code, "SOFT16", device="cpu")
     out, _, _ = dec.decode(noisy, nbytes * 8)
     _eq(encoder.bits_to_bytes(out), data)
     s = dec.update(dec.reset(B), noisy)
@@ -245,7 +270,7 @@ def test_noisy_frames_decode_exactly(name):
 
 def test_decode_grows_traceback_length_stickily():
     code = pt.get_code("Voyager")
-    dec = pt.ViterbiDecoder(code, "SOFT8", traceback_length=4)
+    dec = pt.ViterbiDecoder(code, "SOFT8", traceback_length=4, device="cpu")
     syms = _syms(code, "SOFT8", 1, 26, seed=2)
     dec.decode(syms, 20)
     assert dec.traceback_length == 20
@@ -263,7 +288,7 @@ def test_cuda_decode_matches_cpu(cuda_device, name, mode):
     B, T = 64, 200
     syms = _syms(code, mode, B, T, seed=4)
     total_bits = T - (code.K - 1)
-    cpu = pt.ViterbiDecoder(code, mode).decode(syms, total_bits)
+    cpu = pt.ViterbiDecoder(code, mode, device="cpu").decode(syms, total_bits)
     gpu = pt.ViterbiDecoder(code, mode, device=cuda_device).decode(
         torch.as_tensor(syms, device=cuda_device), total_bits)
     for g, c in zip(gpu, cpu):

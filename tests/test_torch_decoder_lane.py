@@ -37,7 +37,7 @@ def _eq(got, want):
 
 
 def _decoders(name, mode, **kw):
-    dec = pt.ViterbiDecoder(pt.get_code(name), mode, **kw)
+    dec = pt.ViterbiDecoder(pt.get_code(name), mode, **kw, device="cpu")
     jdec = vt.ViterbiDecoder(vt.get_code(name), mode, backend="pallas", **kw)
     assert dec.backend == "lane"
     assert not (jdec._rotated or jdec._plane)
@@ -95,7 +95,7 @@ def test_checkpoint_crosses_packages_via_npz(tmp_path, direction):
     f = tmp_path / "state.npz"
     if direction == "jax_to_port":
         jdec.update(jdec.reset(B), syms[:, :T1 * R]).save(f)
-        s = dec.update(pt.DecoderState.load(f), syms[:, T1 * R:])
+        s = dec.update(pt.DecoderState.load(f, device="cpu"), syms[:, T1 * R:])
         bits = dec.chainback(s, total_bits)
     else:
         dec.update(dec.reset(B), syms[:, :T1 * R]).save(f)
@@ -113,9 +113,9 @@ def test_torch_backend_stays_selectable_and_agrees():
     code = pt.get_code(name)
     B, T = 2, 30
     syms = _syms(code, mode, B, T, seed=9)
-    plain = pt.ViterbiDecoder(code, mode, backend="torch")
+    plain = pt.ViterbiDecoder(code, mode, backend="torch", device="cpu")
     assert plain.backend == "torch"
-    got = pt.ViterbiDecoder(code, mode).decode(syms, T - 2)
+    got = pt.ViterbiDecoder(code, mode, device="cpu").decode(syms, T - 2)
     for g, w in zip(got, plain.decode(syms, T - 2)):
         assert torch.equal(g, w)
 
@@ -124,7 +124,7 @@ def test_backend_is_lane_on_cpu_and_cuda():
     """No card is touched: routing happens at construction."""
     for name in ("Basic K=3 R=1/2", "Basic K=5 R=1/2"):
         code = pt.get_code(name)
-        assert pt.ViterbiDecoder(code, "SOFT8").backend == "lane"
+        assert pt.ViterbiDecoder(code, "SOFT8", device="cpu").backend == "lane"
         assert pt.ViterbiDecoder(code, "SOFT8",
                                  device="cuda").backend == "lane"
     k2 = pt.CodeSpec("K=2", 2, (3, 3))
@@ -132,7 +132,8 @@ def test_backend_is_lane_on_cpu_and_cuda():
     k6 = pt.CodeSpec("K=6", 6, (0o45, 0o73))
     assert pt.ViterbiDecoder(k6, "SOFT16", device="cuda").backend == "lane"
     with pytest.raises(ValueError, match="lane backend"):
-        pt.ViterbiDecoder(pt.get_code("Voyager"), "SOFT8", backend="lane")
+        pt.ViterbiDecoder(pt.get_code("Voyager"), "SOFT8", backend="lane",
+                          device="cpu")
 
 
 def test_noisy_frames_decode_exactly():
@@ -143,7 +144,7 @@ def test_noisy_frames_decode_exactly():
     clean = encoder.encode_symbols(code, torch.as_tensor(data), 127, -127)
     noisy = np.clip(clean.numpy() + rng.randint(-60, 61, clean.shape),
                     -127, 127).reshape(B, -1)
-    dec = pt.ViterbiDecoder(code, "SOFT16")
+    dec = pt.ViterbiDecoder(code, "SOFT16", device="cpu")
     _eq(dec.decode(noisy, N)[0], data)
     jbits, _, _ = vt.ViterbiDecoder(vt.get_code(code.name), "SOFT16",
                                     backend="pallas").decode(

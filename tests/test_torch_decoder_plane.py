@@ -49,7 +49,8 @@ def _decoders(mode="SOFT16", traceback_length=0, **cfg):
     code = pt.get_code(NAME)
     tcfg = pt.get_decode_config(pt.DecodeType(mode), code.R, **cfg)
     jcfg = vt.get_decode_config(vt.DecodeType(mode), code.R, **cfg)
-    dec = pt.ViterbiDecoder(code, tcfg, traceback_length=traceback_length)
+    dec = pt.ViterbiDecoder(code, tcfg, traceback_length=traceback_length,
+                            device="cpu")
     jdec = vt.ViterbiDecoder(vt.get_code(NAME), jcfg, backend="pallas",
                              traceback_length=traceback_length)
     assert dec.backend == "plane" and jdec._plane
@@ -109,7 +110,7 @@ def test_checkpoint_crosses_packages_via_npz(tmp_path, direction):
     f = tmp_path / "state.npz"
     if direction == "jax_to_port":
         jdec.update(jdec.reset(B), syms[:, :T1 * R]).save(f)
-        s = dec.update(pt.DecoderState.load(f), syms[:, T1 * R:])
+        s = dec.update(pt.DecoderState.load(f, device="cpu"), syms[:, T1 * R:])
         assert s.decisions.shape == (B, 56, 4, 128)
         bits = dec.chainback(s, total_bits)
     else:
@@ -147,7 +148,7 @@ def test_checkpoint_without_row_rots():
     # a cut at a multiple of n, where the old global rows equal a fresh
     # chunk's; the loaded state has no host cursor either
     old = strip(dec.update(dec.reset(B), syms[:, :14 * R]))
-    old = pt.DecoderState.from_numpy(old.to_numpy())
+    old = pt.DecoderState.from_numpy(old.to_numpy(), device="cpu")
     assert old.row_rots is None and old.host_cursor is None
     s = dec.update(old, syms[:, 14 * R:])
     np.testing.assert_array_equal(
@@ -165,7 +166,8 @@ def test_truncated_equals_exact_on_a_noisy_frame():
     rng = np.random.RandomState(11)
     B, total_bits = 2, 288
     T = total_bits + code.K - 1
-    dec = pt.ViterbiDecoder(code, "SOFT16", traceback_length=total_bits)
+    dec = pt.ViterbiDecoder(code, "SOFT16", traceback_length=total_bits,
+                            device="cpu")
     data = rng.randint(0, 2, (B, total_bits)).astype(np.uint8)
     clean = encoder.encode_symbols(code, torch.as_tensor(data), 100, -100)
     noisy = np.clip(clean.numpy().reshape(B, -1)
@@ -196,7 +198,7 @@ def test_capacity_and_argument_errors():
     s = dec.update(s, np.zeros((1, 20 * code.R), np.int32))
     with pytest.raises(ValueError, match="overflow"):
         dec.update(s, np.zeros((1, 5 * code.R), np.int32))
-    loaded = pt.DecoderState.from_numpy(s.to_numpy())
+    loaded = pt.DecoderState.from_numpy(s.to_numpy(), device="cpu")
     with pytest.raises(ValueError, match="overflow"):
         dec.update(loaded, np.zeros((1, 5 * code.R), np.int32))
     with pytest.raises(ValueError, match="traceback_length"):
@@ -204,9 +206,10 @@ def test_capacity_and_argument_errors():
     with pytest.raises(ValueError, match="multiples of 8"):
         dec.chainback(s, 4, mode="truncated", block=12)
     with pytest.raises(ValueError, match="plane backend covers"):
-        pt.ViterbiDecoder(pt.get_code("Voyager"), "SOFT8", backend="plane")
+        pt.ViterbiDecoder(pt.get_code("Voyager"), "SOFT8", backend="plane",
+                          device="cpu")
     rotated = pt.ViterbiDecoder(pt.get_code("Voyager"), "SOFT8",
-                                traceback_length=4)
+                                traceback_length=4, device="cpu")
     with pytest.raises(ValueError, match="truncated"):
         rotated.chainback(rotated.reset(1), 4, mode="truncated")
 
@@ -217,7 +220,7 @@ def test_cuda_decoder_matches_cpu(cuda_device):
     B, T = 24, 160
     syms = _syms(code, "SOFT16", B, T, seed=4)
     total_bits = T - (code.K - 1)
-    cpu = pt.ViterbiDecoder(code, "SOFT16")
+    cpu = pt.ViterbiDecoder(code, "SOFT16", device="cpu")
     gpu = pt.ViterbiDecoder(code, "SOFT16", device=cuda_device)
     assert gpu.backend == "plane"
     for g, c in zip(gpu.decode(torch.as_tensor(syms, device=cuda_device),

@@ -163,6 +163,61 @@ def test_slot_tables_and_taps(name):
                                       bigstate._rotr(x, k, 8))
 
 
+@pytest.mark.parametrize("K,R", [(7, 2), (8, 5), (9, 2), (10, 4), (11, 3)])
+def test_warp_patterns_rebuild_the_pallas_slot_table(K, R):
+    """The warp design's branch patterns: slot l + 32k at phase phi takes
+    pattern apat[phi][l] ^ cpat[phi][k], whose bit r picks the high level
+    for rate r.  They rebuild the Pallas kernel's (n, R, S) slot table in
+    every regime, for every n and R of the design."""
+    jcode = vt.get_code("Voyager") if (K, R) == (7, 2) \
+        else _random_code(K, R, K * R)
+    for mode in MODES:
+        js, ts = _spec_pair(jcode, mode)
+        n = K - 1
+        apat, cpat = rotated._warp_patterns(ts)
+        assert apat.shape == (n, 32) and cpat.shape == (n, ts.S // 32)
+        slots = np.arange(ts.S)
+        pat = apat[:, slots & 31] ^ cpat[:, slots >> 5]         # (n, S)
+        bits = (pat[:, None, :] >> np.arange(R)[None, :, None]) & 1
+        table = np.where(bits == 1, ts.soft_high, ts.soft_low)  # (n, R, S)
+        np.testing.assert_array_equal(table.reshape(-1, 1),
+                                      rotated_pallas._slot_bt(js))
+
+
+def test_rows_go_into_out():
+    """``out=`` receives the decision rows in place (the decoder passes a
+    slice of its buffer) and is returned as ``packed``; a wrong buffer
+    raises."""
+    js, ts = _spec_pair(vt.get_code("CDMA 2000"), "SOFT8")
+    m0, syms = _inputs(js, 2, 13, seed=4)
+    m0, syms = torch.as_tensor(m0), torch.as_tensor(syms)
+    want = rotated.acs_rotated(ts, m0, syms)
+    buf = torch.full((20, ts.W, 2), -1, dtype=torch.int32)
+    got = rotated.acs_rotated(ts, m0, syms, out=buf[3:16])
+    assert got[1].data_ptr() == buf[3:16].data_ptr()
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert (buf[:3] == -1).all() and (buf[16:] == -1).all()
+    with pytest.raises(ValueError, match="out must be"):
+        rotated.acs_rotated(ts, m0, syms, out=buf[3:15])
+
+
+def test_kernel_design_follows_the_register_budget():
+    """One warp per frame while a lane holds at most 32 metrics (S <= 1024,
+    K <= 11) and a step's branch patterns fit the warp's lanes (R <= 5);
+    one block per frame for S = 2048 and 4096 and for R > 5."""
+    assert [rotated.kernel_design(1 << n, 2) for n in range(6, 13)] == \
+        ["warp"] * 5 + ["block"] * 2
+    assert [rotated.kernel_design(64, R) for R in (1, 5, 6, 16)] == \
+        ["warp", "warp", "block", "block"]
+    for name in ROTATED_CODES:                  # every registry code: warp
+        code = vt.get_code(name)
+        assert rotated.kernel_design(1 << (code.K - 1), code.R) == "warp"
+    for S in (32, 8192):
+        with pytest.raises(ValueError, match="64 <= S"):
+            rotated.kernel_design(S, 2)
+
+
 def test_bad_inputs_raise():
     _, small = _spec_pair(vt.get_code("Basic K=5 R=1/2"), "SOFT8")
     with pytest.raises(ValueError, match="64 <= S"):

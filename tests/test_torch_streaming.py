@@ -47,7 +47,7 @@ def _compare(name, mode, window, chunk, backend, jax_backends, blocks,
     """Push ``blocks`` through the port and each JAX streamer; returns the
     final port state."""
     sd = StreamingDecoder(pt.get_code(name), mode, window=window,
-                          chunk=chunk)
+                          chunk=chunk, device="cpu")
     assert sd.backend == backend
     jsds = {b: JaxStreaming(vt.get_code(name), mode, window=window,
                             chunk=chunk, backend=b) for b in jax_backends}
@@ -90,7 +90,7 @@ def test_torch_route_matches_jax_xla():
     name, mode, window, chunk = "Voyager", "HARD8", 40, 10   # chunk % 6 != 0
     code = pt.get_code(name)
     sd = StreamingDecoder(code, mode, window=window, chunk=chunk,
-                          backend="torch")
+                          backend="torch", device="cpu")
     jsd = JaxStreaming(vt.get_code(name), mode, window=window, chunk=chunk,
                        backend="xla")
     st, jst = sd.reset(2), jsd.reset(2)
@@ -114,7 +114,7 @@ def test_plane_route_matches_jax_xla_and_plane_ring():
     st = _compare(name, mode, window, chunk, "plane", ("xla",), blocks)
     assert st.history.shape == (1, window, 4, 128)
     sd = StreamingDecoder(pt.get_code(name), mode, window=window,
-                          chunk=chunk)
+                          chunk=chunk, device="cpu")
     jsd = JaxStreaming(code, mode, window=window, chunk=chunk,
                        backend="pallas")
     assert jsd._plane
@@ -133,7 +133,7 @@ def test_argmin_ties_take_the_first_minimum():
     jnp.argmin does."""
     name, mode, window, chunk = "Basic K=3 R=1/2", "SOFT16", 16, 4
     code = pt.get_code(name)
-    sd = StreamingDecoder(code, mode, window=window, chunk=chunk)
+    sd = StreamingDecoder(code, mode, window=window, chunk=chunk, device="cpu")
     jsd = JaxStreaming(vt.get_code(name), mode, window=window, chunk=chunk,
                        backend="xla")
     st, jst = sd.reset(2, starting_state=1), jsd.reset(2, starting_state=1)
@@ -155,7 +155,7 @@ def test_argmin_ties_take_the_first_minimum():
 
 def test_priming_and_errors():
     code = pt.get_code("Basic K=5 R=1/2")
-    sd = StreamingDecoder(code, "HARD8", window=64, chunk=16)
+    sd = StreamingDecoder(code, "HARD8", window=64, chunk=16, device="cpu")
     state = sd.reset(1)
     primed = []
     for _ in range(6):
@@ -173,17 +173,18 @@ def test_priming_and_errors():
     with pytest.raises(ValueError, match="frames"):
         sd.push(state, np.zeros((2, 16 * code.R), np.int32))
     with pytest.raises(ValueError, match="multiple of chunk"):
-        StreamingDecoder(code, "HARD8", window=60, chunk=16)
+        StreamingDecoder(code, "HARD8", window=60, chunk=16, device="cpu")
     with pytest.raises(ValueError, match="unknown backend"):
-        StreamingDecoder(code, "HARD8", window=64, chunk=16, backend="xla")
+        StreamingDecoder(code, "HARD8", window=64, chunk=16, backend="xla",
+                         device="cpu")
     with pytest.raises(ValueError, match="rotated backend"):
         StreamingDecoder(code, "HARD8", window=64, chunk=16,
-                         backend="rotated")
+                         backend="rotated", device="cpu")
     k18 = pt.CodeSpec("K=18", 18, ((1 << 17) | 0o12345, (1 << 17) | 0o7651))
     with pytest.raises(NotImplementedError, match="S <= 65536"):
         StreamingDecoder(k18, "SOFT8", window=64, chunk=16, device="cuda")
     assert StreamingDecoder(k18, "SOFT8", window=64,
-                            chunk=16).backend == "torch"
+                            chunk=16, device="cpu").backend == "torch"
     for name, route in (("Basic K=3 R=1/2", "lane"), ("Voyager", "rotated"),
                         ("Cassini", "plane")):
         assert StreamingDecoder(pt.get_code(name), "SOFT8", window=64,
@@ -202,13 +203,14 @@ def test_noisy_stream_equals_the_exact_decode():
     data = torch.randint(0, 2, (B, N), generator=gen, dtype=torch.uint8)
     syms = testsig.awgn_quantize(testsig.modulate_encode(code, data), gen,
                                  2.0, code.R, cfg)
-    exact, _, _ = pt.ViterbiDecoder(code, cfg).decode(syms.reshape(B, -1), N)
+    exact, _, _ = pt.ViterbiDecoder(code, cfg, device="cpu").decode(
+        syms.reshape(B, -1), N)
     assert int(testsig.count_bit_errors(exact, data)) > 0, "not noisy"
     n_push = -(-(T + window + chunk) // chunk)
     stream = torch.zeros((B, n_push * chunk, code.R), dtype=torch.int32)
     stream[:, :T] = syms
     stream = stream.reshape(B, -1)
-    sd = StreamingDecoder(code, cfg, window=window, chunk=chunk)
+    sd = StreamingDecoder(code, cfg, window=window, chunk=chunk, device="cpu")
     st, out = sd.reset(B), []
     step = chunk * code.R
     for i in range(n_push):
@@ -230,7 +232,8 @@ def test_clean_stream_equals_the_data():
     stream = torch.zeros((B, n_push * chunk, code.R), dtype=torch.int32)
     stream[:, :T] = syms
     stream = stream.reshape(B, -1)
-    sd = StreamingDecoder(code, "SOFT16", window=window, chunk=chunk)
+    sd = StreamingDecoder(code, "SOFT16", window=window, chunk=chunk,
+                          device="cpu")
     st, out = sd.reset(B), []
     step = chunk * code.R
     for i in range(n_push):

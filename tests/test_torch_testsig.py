@@ -87,7 +87,8 @@ def test_awgn_quantize_equals_jax_at_high_ebno(mode):
                                      jcfg)
     assert got.dtype == torch.int32
     _eq(got, want)
-    spec = pt.ViterbiDecoder(code, cfg).spec      # a StaticSpec works too
+    # a StaticSpec works too
+    spec = pt.ViterbiDecoder(code, cfg, device="cpu").spec
     _eq(testsig.awgn_quantize(floats, torch.Generator().manual_seed(1),
                               80.0, code.R, spec), want)
 

@@ -1,0 +1,295 @@
+#!/usr/bin/env python3
+"""A/B of the port's flagship path against an earlier tree's, on one card.
+
+    python3 tools/torch_kernel_ab.py --parent DIR [--out FILE]
+
+DIR is a checkout of the earlier tree (for example ``git archive`` of the
+parent commit, unpacked); its ``viterbidecodercpp_torch`` is imported
+under another name, builds its own kernels into its own ``_build``, and
+runs next to this tree's in one process.  On one CUDA card the script
+
+* checks both trees give the same ACS outputs, walk bits and decoded bits;
+* times both in turns - earlier, this, this, earlier - (CUDA events,
+  median of 7 after 2 warm-up calls; pushes median of 41 after 5) at the
+  main path's shape, Voyager SOFT8 B=1024 T=2048: the rotated ACS, the
+  slot-order walk and ``ViterbiDecoder.decode``; and the lane path's
+  state-order walk (Basic K=5, B=512, 2052 rows) and the Voyager SOFT16
+  (B=1024, window 256, chunk 64) and Basic K=5 SOFT16 (B=1024, window
+  160, chunk 32) stream pushes;
+* sweeps the batch of both trees' ACS at T=2048, and times both trees' ACS
+  and walk at every n of the rotated class (random K=7..13 R=1/2 codes,
+  SOFT8, B=1024, T=2048);
+* profiles five of this tree's Voyager decodes with ``torch.profiler``:
+  device time per kernel and the device's idle share of the window;
+* prints ptxas's register and spill counts for this tree's two sources.
+
+It prints one JSON line (also written to FILE).  Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import importlib
+import importlib.util
+import json
+import statistics
+import subprocess
+import sys
+import time
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import numpy as np
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
+
+import viterbidecodercpp_torch as this  # noqa: E402
+from viterbidecodercpp_torch.ops import _build  # noqa: E402
+
+SOURCES = ("rotated_acs", "chainback")
+SWEEP_B = (1, 32, 132, 264, 528, 1024, 2048, 4096)
+TURNS = ("earlier", "this", "this", "earlier")
+
+
+def time_ms(fn, reps: int = 7, warmup: int = 2) -> float:
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def load_package(root: Path, name: str):
+    """Import ``root/viterbidecodercpp_torch`` as package ``name``."""
+    pkg = root / "viterbidecodercpp_torch"
+    spec = importlib.util.spec_from_file_location(
+        name, pkg / "__init__.py", submodule_search_locations=[str(pkg)])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[name] = mod
+    spec.loader.exec_module(mod)
+    for sub in ("ops.rotated", "ops.chainback", "ops.torch_core",
+                "ops._build"):
+        importlib.import_module(f"{name}.{sub}")
+    return mod
+
+
+def ptxas_report() -> dict:
+    """Registers and spills per kernel of this tree's two sources."""
+    def one(name):
+        proc = subprocess.run(
+            [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+             "/dev/null", str(_build.CSRC_DIR / f"{name}.cu")],
+            capture_output=True, text=True, check=True)
+        return name, [ln.strip() for ln in proc.stderr.splitlines()
+                      if "registers" in ln or "spill" in ln]
+
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        return dict(pool.map(one, SOURCES))
+
+
+def spec_of(pkg, code, mode="SOFT8"):
+    return pkg.ops.torch_core.make_static_spec(
+        code, pkg.get_decode_config(pkg.DecodeType(mode), code.R))
+
+
+def same(a, b, what):
+    if not all(torch.equal(x, y) for x, y in zip(a, b)):
+        raise SystemExit(f"torch_kernel_ab: {what}: this tree != the "
+                         f"earlier tree")
+
+
+def in_turns(fns: dict, reps: int = 7, warmup: int = 2) -> dict:
+    out = {}
+    for who in TURNS:
+        out.setdefault(who, []).append(time_ms(fns[who], reps, warmup))
+    return out
+
+
+def primed_push(pkg, name, B, window, chunk, rng):
+    """A push of one block into a stream whose ring is full."""
+    code = pkg.get_code(name)
+    sd = pkg.StreamingDecoder(code, "SOFT16", window=window, chunk=chunk,
+                              device="cuda")
+    state = sd.reset(B)
+    block = torch.as_tensor(rng.randint(-127, 128, (B, chunk * code.R))
+                            .astype(np.int32), device="cuda")
+    for _ in range(window // chunk + 1):
+        state, _, _ = sd.push(state, block)
+    return lambda: sd.push(state, block)
+
+
+def profile_decode(dec, syms, nbits) -> dict:
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        dec.decode(syms, nbits)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(5):
+            dec.decode(syms, nbits)
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    per = {}
+    for e in prof.key_averages():
+        # an aten:: operator's self device time is that of the kernels it
+        # launched, which appear under their own names: count those only
+        if e.key.startswith("aten::"):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us > 0:
+            per[e.key] = per.get(e.key, 0.0) + us / 5
+    busy = sum(per.values())
+    return {"window_ms_per_decode": window_us / 5e3,
+            "device_busy_ms_per_decode": busy / 1e3,
+            "idle_share": 1 - busy * 5 / window_us,
+            "device_us_per_decode": dict(sorted(per.items(),
+                                                key=lambda kv: -kv[1]))}
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", required=True, type=Path)
+    ap.add_argument("--out", type=Path)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_kernel_ab: needs a CUDA card")
+    rng = np.random.RandomState(args.seed)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    old = load_package(args.parent.resolve(), "viterbidecodercpp_torch_ab")
+    pk = {"earlier": old, "this": this}
+    with ThreadPoolExecutor(2 * len(SOURCES) + 1) as pool:
+        ptxas = pool.submit(ptxas_report)
+        builds = [pool.submit(p.ops._build.load, n)
+                  for p in (old, this) for n in SOURCES]
+        for f in builds:
+            f.result()
+        res = {"card": card, "ptxas": ptxas.result()}
+
+    # the main path's shape, in turns
+    B, N = 1024, 2042
+    code = this.get_code("Voyager")
+    T, R = N + code.K - 1, code.R
+    specs = {w: spec_of(p, p.get_code("Voyager")) for w, p in pk.items()}
+    syms = torch.as_tensor(rng.randint(-3, 4, (B, T, R)).astype(np.int32),
+                           device="cuda")
+    m0 = this.ops.torch_core.initial_metrics(specs["this"], B, 0, "cuda")
+    acs = {w: (lambda p=p, s=specs[w]: p.ops.rotated.acs_rotated(s, m0, syms))
+           for w, p in pk.items()}
+    rows = acs["this"]()
+    same(rows, acs["earlier"](), "Voyager ACS")
+    rots = torch.as_tensor((np.arange(T) + 1) % (code.K - 1),
+                           dtype=torch.int32, device="cuda")
+    ends = torch.as_tensor(rng.randint(0, 64, B).astype(np.int32),
+                           device="cuda")
+    walk = {w: (lambda p=p, s=specs[w]: p.ops.chainback.walk_rows(
+        s, rows[1], ends, slot_order=True, rots=rots)) for w, p in pk.items()}
+    same([walk["this"]()], [walk["earlier"]()], "Voyager walk")
+    flat = syms.reshape(B, T * R)
+    decs = {w: p.ViterbiDecoder(p.get_code("Voyager"), "SOFT8",
+                                device="cuda") for w, p in pk.items()}
+    decode = {w: (lambda d=d: d.decode(flat, N)) for w, d in decs.items()}
+    same(decode["this"](), decode["earlier"](), "Voyager decode")
+    res["voyager_soft8_b1024_t2048"] = {
+        "acs_ms": in_turns(acs), "walk_ms": in_turns(walk),
+        "decode_ms": in_turns(decode)}
+    print(f"main: {json.dumps(res['voyager_soft8_b1024_t2048'])}",
+          flush=True)
+
+    # the lane path's walk and the two host-bound pushes
+    lane_spec = {w: spec_of(p, p.get_code("Basic K=5 R=1/2"), "SOFT16")
+                 for w, p in pk.items()}
+    lrows, lB = 2052, 512
+    words = torch.as_tensor(rng.randint(0, 1 << 16, (lrows, 1, lB))
+                            .astype(np.int32), device="cuda")
+    starts = torch.as_tensor(rng.randint(0, 16, lB).astype(np.int32),
+                             device="cuda")
+    lwalk = {w: (lambda p=p, s=lane_spec[w]: p.ops.chainback.walk_rows(
+        s, words, starts)) for w, p in pk.items()}
+    same([lwalk["this"]()], [lwalk["earlier"]()], "lane walk")
+    res["lane_walk_b512_rows2052_ms"] = in_turns(lwalk)
+    for label, name, b, window, chunk in (
+            ("voyager_push_ms", "Voyager", 1024, 256, 64),
+            ("basic_k5_push_ms", "Basic K=5 R=1/2", 1024, 160, 32)):
+        pushes = {w: primed_push(p, name, b, window, chunk, rng)
+                  for w, p in pk.items()}
+        res[label] = in_turns(pushes, reps=41, warmup=5)
+    keys = ("lane_walk_b512_rows2052_ms", "voyager_push_ms",
+            "basic_k5_push_ms")
+    print(f"lane walk and pushes: {json.dumps({k: res[k] for k in keys})}",
+          flush=True)
+
+    # batch sweep of both trees' ACS
+    sweep = []
+    for b in SWEEP_B:
+        sb = torch.as_tensor(rng.randint(-3, 4, (b, T, R)).astype(np.int32),
+                             device="cuda")
+        mb = this.ops.torch_core.initial_metrics(specs["this"], b, 0, "cuda")
+        fb = {w: (lambda p=p, s=specs[w]: p.ops.rotated.acs_rotated(s, mb,
+                                                                    sb))
+              for w, p in pk.items()}
+        same(fb["this"](), fb["earlier"](), f"ACS B={b}")
+        sweep.append({"B": b, "this_ms": time_ms(fb["this"]),
+                      "earlier_ms": time_ms(fb["earlier"])})
+        print(f"sweep: {json.dumps(sweep[-1])}", flush=True)
+    res["acs_batch_sweep_t2048"] = sweep
+
+    # every n of the class
+    by_n = []
+    for K in range(7, 14):
+        G = tuple(int(rng.randint(0, 1 << K)) | 1 | (1 << (K - 1))
+                  for _ in range(2))
+        sk = {w: spec_of(p, p.CodeSpec(f"K={K}", K, G)) for w, p in pk.items()}
+        S = sk["this"].S
+        syk = torch.as_tensor(rng.randint(-3, 4, (B, T, 2)).astype(np.int32),
+                              device="cuda")
+        mk = this.ops.torch_core.initial_metrics(sk["this"], B, 0, "cuda")
+        fa = {w: (lambda p=p, s=sk[w]: p.ops.rotated.acs_rotated(s, mk, syk))
+              for w, p in pk.items()}
+        rk = fa["this"]()
+        same(rk, fa["earlier"](), f"ACS K={K}")
+        rot_k = torch.as_tensor((np.arange(T) + 1) % (K - 1),
+                                dtype=torch.int32, device="cuda")
+        ek = torch.as_tensor(rng.randint(0, S, B).astype(np.int32),
+                             device="cuda")
+        fw = {w: (lambda p=p, s=sk[w]: p.ops.chainback.walk_rows(
+            s, rk[1], ek, slot_order=True, rots=rot_k))
+            for w, p in pk.items()}
+        same([fw["this"]()], [fw["earlier"]()], f"walk K={K}")
+        by_n.append({
+            "K": K, "S": S, "W": sk["this"].W,
+            "acs_design": this.ops.rotated.kernel_design(S, 2),
+            "walk_design": this.ops.chainback.walk_design(sk["this"].W),
+            "acs_this_ms": time_ms(fa["this"]),
+            "acs_earlier_ms": time_ms(fa["earlier"]),
+            "walk_this_ms": time_ms(fw["this"]),
+            "walk_earlier_ms": time_ms(fw["earlier"])})
+        print(f"by_n: {json.dumps(by_n[-1])}", flush=True)
+        del rk, mk, syk
+    res["by_n_b1024_t2048"] = by_n
+
+    res["profile_this_decode"] = profile_decode(decs["this"], flat, N)
+    print(f"profile: {json.dumps(res['profile_this_decode'])}", flush=True)
+    line = json.dumps(res)
+    if args.out:
+        args.out.parent.mkdir(parents=True, exist_ok=True)
+        args.out.write_text(line + "\n")
+    print(line, flush=True)
+
+
+if __name__ == "__main__":
+    main()

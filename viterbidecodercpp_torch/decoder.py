@@ -85,7 +85,7 @@ class DecoderState:
         return out
 
     @classmethod
-    def from_numpy(cls, d: dict, device="cpu") -> "DecoderState":
+    def from_numpy(cls, d: dict, device="cuda") -> "DecoderState":
         """Build a carry from arrays under the JAX state's field names,
         e.g. ``{f: np.asarray(getattr(jax_state, f)) ...}``; either
         decision layout (3-D rows or the 4-D plane buffer)."""
@@ -104,7 +104,7 @@ class DecoderState:
         np.savez(path, **self.to_numpy())
 
     @classmethod
-    def load(cls, path: str, device="cpu") -> "DecoderState":
+    def load(cls, path: str, device="cuda") -> "DecoderState":
         """Restore a carry written by :meth:`save` of either package."""
         with np.load(path) as z:
             return cls.from_numpy({f: z[f] for f in z.files}, device)
@@ -182,7 +182,7 @@ class ViterbiDecoder:
     def __init__(self, code: CodeSpec,
                  config: Union[DecoderConfig, DecodeType, str], *,
                  traceback_length: int = 0, backend: str = "auto",
-                 device="cpu"):
+                 device="cuda"):
         if not isinstance(config, DecoderConfig):
             config = get_decode_config(DecodeType(config), code.R)
         self.code = code
@@ -301,16 +301,21 @@ class ViterbiDecoder:
                 spec, state.metrics.contiguous(), syms,
                 out=state.decisions, row0=cursor)
         else:
+            rows = state.decisions[cursor:cursor + nbits]
             if self._rotated:
+                # the kernel writes the chunk's rows straight into the
+                # buffer (a carry built by hand may not be contiguous)
                 metrics, packed, acc = rotated.acs_rotated(
-                    spec, state.metrics.contiguous(), syms.contiguous())
+                    spec, state.metrics.contiguous(), syms.contiguous(),
+                    out=rows if rows.is_contiguous() else None)
             elif self._lane:
                 metrics, packed, acc = lane.acs_lane(
                     spec, state.metrics.contiguous(), syms.contiguous())
             else:
                 metrics, packed, acc = torch_core.acs_scan(
                     spec, state.metrics, syms)
-            state.decisions[cursor:cursor + nbits] = packed
+            if packed.data_ptr() != rows.data_ptr():
+                rows.copy_(packed)
         if slot_rows:
             # row i of this chunk is slot-rotated by (i + 1) mod n
             row_rots[cursor:cursor + nbits] = (
@@ -411,11 +416,11 @@ class ViterbiDecoder:
             return bits, m[end_state & (spec.S - 1), :], acc
         if self._traceback_length < total_bits:
             self.set_traceback_length(total_bits)
-        # a plane buffer the one update fills up to every row the
-        # chainback reads needs no zero fill (at Cassini B=512 it is 2 GB)
+        # a buffer the one update fills up to every row the chainback
+        # reads needs no zero fill (a plane buffer at Cassini B=512 is 2 GB)
         nrows = symbols.shape[-1] // self.code.R
-        state = self._reset(B, 0, zero_fill=not (
-            self._plane and nrows >= total_bits + self.code.K - 1))
+        state = self._reset(B, 0, zero_fill=(
+            nrows < total_bits + self.code.K - 1))
         state = self.update(state, symbols)
         bits = self.chainback(state, total_bits, end_state)
         return bits, self.get_error(state, end_state), state.accumulated_error

@@ -11,12 +11,16 @@ chunk), else the one-shot schedule (t + 1) mod n.
 
 :func:`chainback` and :func:`walk_rows` launch the CUDA kernel
 (``csrc/chainback.cu``) for CUDA tensors and run the plain versions
-(:func:`chainback_ref`, :func:`walk_rows_ref`) only for CPU tensors.
+(:func:`chainback_ref`, :func:`walk_rows_ref`) only for CPU tensors.  The
+kernel has two designs, picked by :func:`walk_design` on the row width W:
+tiles of whole rows prefetched ahead of the walk (W <= 8), or the walk
+that loads the one word the state selects (wider rows).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -24,11 +28,26 @@ import torch
 from .torch_core import StaticSpec, _unpack_bit, needs_big_state
 
 __all__ = ["chainback", "chainback_ref", "walk_rows", "walk_rows_ref",
-           "LAUNCHES"]
+           "walk_design", "TILED_MAX_WORDS", "LAUNCHES"]
+
+# Widest row (in int32 words) of the tiled walk (VDT_TILED_MAX_W in
+# csrc/chainback.cu), a template on W in {1, 2, 4, 8}.
+TILED_MAX_WORDS = 8
 
 # Kernel launches by chainback / walk_rows (reset and read by
 # chip_smoke.py).
 LAUNCHES = 0
+
+
+def walk_design(W: int) -> str:
+    """The CUDA walk's design for rows of W words: ``"tiled"`` (all W
+    words of a row loaded ahead of the walk, independent of the state) up
+    to :data:`TILED_MAX_WORDS`, ``"chain"`` (the one word the state selects,
+    loaded on the chain) above, where whole rows would read W times the
+    words the walk needs."""
+    if W < 1 or W & (W - 1):
+        raise ValueError(f"rows are a power of two of words, got W={W}")
+    return "tiled" if W <= TILED_MAX_WORDS else "chain"
 
 
 def _check(spec: StaticSpec, packed: torch.Tensor, start: torch.Tensor,
@@ -77,6 +96,17 @@ def _walk_ref(spec: StaticSpec, packed: torch.Tensor, start: torch.Tensor,
     return bits
 
 
+@functools.lru_cache(maxsize=None)
+def _launcher():
+    from . import _build
+
+    fn = _build.load("chainback").vdt_chainback
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + \
+        [ctypes.c_void_p]
+    return fn
+
+
 def _walk_cuda(spec: StaticSpec, packed: torch.Tensor, start: torch.Tensor,
                rows: int, slot_order: bool, rots, valid) -> torch.Tensor:
     for name, x in (("packed", packed), ("start state", start),
@@ -88,13 +118,7 @@ def _walk_cuda(spec: StaticSpec, packed: torch.Tensor, start: torch.Tensor,
     B = packed.shape[2]
     if B == 0:
         raise ValueError("empty batch")
-    from . import _build
-
-    lib = _build.load("chainback")
-    fn = lib.vdt_chainback
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + \
-        [ctypes.c_void_p]
+    fn = _launcher()
     bits = torch.empty((rows, B), dtype=torch.uint8, device=packed.device)
     with torch.cuda.device(packed.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -102,7 +126,7 @@ def _walk_cuda(spec: StaticSpec, packed: torch.Tensor, start: torch.Tensor,
                  rots.data_ptr() if rots is not None else None,
                  valid.data_ptr() if valid is not None else None,
                  bits.data_ptr(), rows, spec.W, B, spec.K, int(slot_order),
-                 stream)
+                 int(walk_design(spec.W) == "tiled"), stream)
     if err != 0:
         raise RuntimeError(f"chainback kernel launch failed: CUDA error "
                            f"{err}")

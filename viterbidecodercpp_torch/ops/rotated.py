@@ -18,25 +18,34 @@ which the decoder records in ``DecoderState.row_rots`` for the walk.
 :func:`acs_rotated` launches the CUDA kernel (``csrc/rotated_acs.cu``)
 for CUDA tensors and runs the plain version :func:`acs_rotated_ref` -
 same layout, same schedule, plain torch ops over a loop on T - only for
-CPU tensors.
+CPU tensors.  The kernel has two designs, picked by :func:`kernel_design`:
+one warp per frame with the metrics in registers for S <= 1024 and
+R <= 5 (fed the branch-pattern tables of :func:`_warp_patterns`), one
+block per frame otherwise.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from .torch_core import MAX_LANE_STATES, StaticSpec, pack_bits
 
-__all__ = ["acs_rotated", "acs_rotated_ref", "slot_scan",
-           "ROTATED_MIN_STATES", "LAUNCHES"]
+__all__ = ["acs_rotated", "acs_rotated_ref", "slot_scan", "kernel_design",
+           "ROTATED_MIN_STATES", "WARP_MAX_STATES", "WARP_MAX_RATE",
+           "LAUNCHES"]
 
 ROTATED_MIN_STATES = 64
 MAX_RATE = 16          # VDT_MAX_R in csrc/rotated_acs.cu
+# Bounds of the warp-per-frame design (VDT_WARP_MAX_N, VDT_WARP_MAX_R in
+# csrc/rotated_acs.cu): a lane holds S/32 metrics in registers, and a step
+# has at most 2^R <= 32 branch patterns, one per lane.
+WARP_MAX_STATES = 1024
+WARP_MAX_RATE = 5
 
 # Kernel launches by acs_rotated (reset and read by chip_smoke.py).
 LAUNCHES = 0
@@ -64,6 +73,23 @@ def _slot_bt(spec: StaticSpec) -> np.ndarray:
         h = _rotr(pos & ~(1 << j), -phi, n)            # rotl(p_lo, phi)
         out[phi] = bt[:, h]
     return out
+
+
+def kernel_design(S: int, R: int) -> str:
+    """The CUDA kernel's design for S states at rate 1/R: ``"warp"`` (one
+    warp per frame, S/32 metrics per lane in registers, a step's 2^R
+    branch metrics one per lane) for S <= :data:`WARP_MAX_STATES` and
+    R <= :data:`WARP_MAX_RATE`; ``"block"`` (one block per frame, metrics
+    in shared memory, branch values from the taps) otherwise, where a lane
+    would need 64 or more metric registers or a step has more branch
+    patterns than a warp has lanes."""
+    if not ROTATED_MIN_STATES <= S <= MAX_LANE_STATES:
+        raise ValueError(f"the rotated ACS covers {ROTATED_MIN_STATES} <= S "
+                         f"<= {MAX_LANE_STATES}, got S={S}")
+    if R < 1:
+        raise ValueError(f"rate 1/R needs R >= 1, got R={R}")
+    return "warp" if S <= WARP_MAX_STATES and R <= WARP_MAX_RATE \
+        else "block"
 
 
 def _check(spec: StaticSpec, metrics: torch.Tensor,
@@ -140,13 +166,27 @@ def slot_scan(spec: StaticSpec, metrics: torch.Tensor,
     return m[perm], acc
 
 
+def _rows_out(spec: StaticSpec, metrics: torch.Tensor, T: int,
+              out: Optional[torch.Tensor]) -> torch.Tensor:
+    """The (T, W, B) tensor that receives the decision rows: ``out`` when
+    given (checked), else a new one."""
+    shape = (T, spec.W, metrics.shape[1])
+    if out is None:
+        return torch.empty(shape, dtype=torch.int32, device=metrics.device)
+    if (tuple(out.shape) != shape or out.dtype != torch.int32
+            or out.device != metrics.device or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous int32 {shape} tensor on "
+                         f"{metrics.device}, got {out.dtype} "
+                         f"{tuple(out.shape)} on {out.device}")
+    return out
+
+
 def acs_rotated_ref(spec: StaticSpec, metrics: torch.Tensor,
-                    symbols: torch.Tensor
+                    symbols: torch.Tensor, out: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of :func:`acs_rotated`, on any device."""
     B, T = _check(spec, metrics, symbols)
-    packed = torch.empty((T, spec.W, B), dtype=torch.int32,
-                         device=metrics.device)
+    packed = _rows_out(spec, metrics, T, out)
 
     def emit(t, dbit):
         packed[t] = pack_bits(dbit)      # slot p -> bit p%32 of word p>>5
@@ -180,16 +220,81 @@ def _gmask(spec: StaticSpec) -> tuple:
     return tuple(g)
 
 
+def _parity(x: np.ndarray) -> np.ndarray:
+    x = x.astype(np.int64)
+    p = np.zeros_like(x)
+    while x.any():
+        p ^= x & 1
+        x = x >> 1
+    return p
+
+
+@functools.lru_cache(maxsize=64)
+def _warp_patterns(spec: StaticSpec) -> Tuple[np.ndarray, np.ndarray]:
+    """Branch-pattern tables of the warp design: (apat (n, 32), cpat
+    (n, S/32)) int32.
+
+    Slot p = l + 32k at phase phi has half-state h = rotl_n(p & ~dist, phi)
+    and expects the high level on rate r where parity((h << 1) & g[r]) is
+    1 (see :func:`_gmask`); bit r of its pattern is that parity.  Since the
+    rotation permutes bits and the parity is linear, the pattern is
+    ``apat[phi][l] ^ cpat[phi][k]``: a per-lane and a per-register part."""
+    n = spec.K - 1
+    g = _gmask(spec)
+
+    def pattern(x):
+        out = np.zeros_like(x)
+        for r, gr in enumerate(g):
+            out |= _parity((x << 1) & gr) << r
+        return out
+
+    lanes = np.arange(32, dtype=np.int64)
+    regs = 32 * np.arange(spec.S // 32, dtype=np.int64)
+    apat = np.zeros((n, 32), np.int32)
+    cpat = np.zeros((n, spec.S // 32), np.int32)
+    for phi in range(n):
+        dist = 1 << (n - 1 - phi)
+        apat[phi] = pattern(_rotr(lanes & ~dist, -phi, n))
+        cpat[phi] = pattern(_rotr(regs & ~dist, -phi, n))
+    return apat, cpat
+
+
+@functools.lru_cache(maxsize=64)
+def _launch_tables(spec: StaticSpec) -> tuple:
+    """What the launcher takes from the host for a spec, made once: the tap
+    masks (a ctypes array), the pointers to the warp design's pattern
+    tables (None for the block design) and the tables themselves."""
+    g = (ctypes.c_int * spec.R)(*_gmask(spec))
+    if kernel_design(spec.S, spec.R) != "warp":
+        return g, None, None, None
+    tables = _warp_patterns(spec)
+    return g, tables[0].ctypes.data, tables[1].ctypes.data, tables
+
+
+@functools.lru_cache(maxsize=None)
+def _launcher():
+    from . import _build
+
+    fn = _build.load("rotated_acs").vdt_rotated_acs
+    fn.restype = ctypes.c_int
+    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
+                   + [ctypes.c_void_p])
+    return fn
+
+
 def acs_rotated(spec: StaticSpec, metrics: torch.Tensor,
-                symbols: torch.Tensor
+                symbols: torch.Tensor, out: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Run T rotated ACS steps; see the module docstring for the contract.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (``csrc/rotated_acs.cu``) or raise."""
+    ``out``: an optional contiguous (T, W, B) int32 tensor that receives
+    the decision rows (and is returned as ``packed``), e.g. a slice of a
+    decoder's row buffer.  CPU tensors take the plain version; CUDA
+    tensors launch the kernel (``csrc/rotated_acs.cu``) or raise."""
     B, T = _check(spec, metrics, symbols)
     if metrics.device.type == "cpu":
-        return acs_rotated_ref(spec, metrics, symbols)
+        return acs_rotated_ref(spec, metrics, symbols, out)
     if metrics.device.type != "cuda":
         raise ValueError(f"unsupported device {metrics.device}")
     for name, x in (("metrics", metrics), ("symbols", symbols)):
@@ -201,26 +306,19 @@ def acs_rotated(spec: StaticSpec, metrics: torch.Tensor,
                          f"got R={spec.R}")
     if B == 0:
         raise ValueError("empty batch")
-    from . import _build
-
-    lib = _build.load("rotated_acs")
-    fn = lib.vdt_rotated_acs
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p] + [ctypes.c_int] * 6
-                   + [ctypes.c_void_p])
-    g = (ctypes.c_int * spec.R)(*_gmask(spec))
+    fn = _launcher()
+    g, apat, cpat, _ = _launch_tables(spec)
     m_out = torch.empty_like(metrics)
-    packed = torch.empty((T, spec.W, B), dtype=torch.int32,
-                         device=metrics.device)
+    packed = _rows_out(spec, metrics, T, out)
     acc = torch.empty(B, dtype=torch.int32, device=metrics.device)
     with torch.cuda.device(metrics.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(metrics.data_ptr(), symbols.data_ptr(), m_out.data_ptr(),
                  packed.data_ptr(), acc.data_ptr(), B, T, spec.K, spec.R,
-                 ctypes.cast(g, ctypes.c_void_p), spec.soft_high,
-                 spec.soft_low, spec.max_error, spec.metric_max,
-                 spec.renorm_threshold, int(spec.saturating), stream)
+                 ctypes.cast(g, ctypes.c_void_p), apat, cpat,
+                 spec.soft_high, spec.soft_low, spec.max_error,
+                 spec.metric_max, spec.renorm_threshold,
+                 int(spec.saturating), stream)
     if err != 0:
         raise RuntimeError(f"rotated ACS kernel launch failed: CUDA error "
                            f"{err}")

@@ -72,7 +72,7 @@ class StreamingDecoder:
     def __init__(self, code: CodeSpec,
                  config: Union[DecoderConfig, DecodeType, str], *,
                  window: int, chunk: int, backend: str = "auto",
-                 device="cpu", plain: bool = False):
+                 device="cuda", plain: bool = False):
         if not isinstance(config, DecoderConfig):
             config = get_decode_config(DecodeType(config), code.R)
         if chunk < 1 or window < 1 or window % chunk:
