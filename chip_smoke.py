@@ -21,10 +21,13 @@ Phases, in order; any failure raises and exits non-zero:
    a valid mask) and in state order (with and without a valid mask).
 2b. The same for the plane class: the plane ACS kernel on Cassini x the
    three regimes x both arithmetic modes and random K=14, K=16 and K=17
-   R=1/2 codes at B=20, T=301 from off-reset metrics (metrics, packed rows,
-   acc); on those rows the frame-major walk with random rotations and a
-   valid mask, and the truncated walk at block=64/overlap=96 and at its
-   defaults.
+   R=1/2 codes, and at the boundaries of its branch-pattern tables a
+   K=15 R=1/8 SOFT16 wrapping code (a full 8-rate table), a K=14 R=1/11
+   HARD8 code (two tables) and a K=17 R=1/6 code (the cluster at
+   Cassini's rate), each at B=1 with T = 1 and n-1 and at B=20, T=301,
+   from off-reset metrics (metrics, packed rows, acc); on the B=20 rows
+   the frame-major walk with random rotations and a valid mask, and the
+   truncated walk at block=64/overlap=96 and at its defaults.
 2c. The same for the lane class: the lane ACS kernel on Basic K=3, Basic
    K=5 and random K=2 (R=3), K=4 (R=5) and K=6 (R=4) codes x the three
    regimes x both arithmetic modes at B=100 (not a multiple of 32/S),
@@ -58,7 +61,8 @@ Phases, in order; any failure raises and exits non-zero:
 4. Times on the card (CUDA events, warm-up, median): each kernel and its
    plain version at its path's full-size shape beside its bound (the
    larger of its bytes over the HBM rate and its int32 operations over
-   the int32 rate, counted from the shapes) and its share of the bound,
+   the int32 rate, counted from the shapes; an ACS step counts its 2^R
+   branch metrics once a frame) and its share of the bound,
    each whole decode in decoded symbols/s (B*T*R / s), and each stream's
    median ms per push (of 41: a push is host-bound) and streamed
    symbols/s (B*chunk*R / s).
@@ -117,6 +121,15 @@ STREAMS = (
 ROTATED_RANDOM = ((8, 2, "SOFT8"), (10, 2, "SOFT16"), (11, 2, "HARD8"),
                   (12, 2, "SOFT8"), (13, 2, "SOFT8"), (8, 5, "SOFT8"),
                   (10, 6, "SOFT16"), (9, 16, "SOFT8"))
+# phase 2b's random codes (K, R, mode, arith) beside Cassini (K=15, R=6):
+# every n of the class, a full 8-rate pattern table, two tables (R > 8) and
+# the K=17 cluster at Cassini's rate
+PLANE_RANDOM = ((14, 2, "SOFT8", "saturating"),
+                (16, 2, "SOFT8", "saturating"),
+                (17, 2, "SOFT8", "saturating"),
+                (15, 8, "SOFT16", "wrapping"),
+                (14, 11, "HARD8", "saturating"),
+                (17, 6, "SOFT16", "saturating"))
 SWEEP_EBNO_DB = 3.0
 SWEEP_WINDOWS = (64, 128, 256)
 SWEEP_CHUNK = 32
@@ -129,17 +142,19 @@ SWEEP_END_BITS = 64
 HBM_BYTES_PER_S = 3.35e12
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
 # int32 operations a trellis state costs per step: two adds, two clamps, a
-# compare, a select, a share of the decision word, and ~R for the branch
-# metric (2R per butterfly); a walk row costs ~8 per frame
+# compare, a select and a share of the decision word.  A step has only 2^R
+# distinct branch metrics, each a sum of R distances, so the branch metric
+# costs R 2^R a step a frame, not R a state.  A walk row costs ~8 per frame.
 ACS_OPS = 8
 WALK_OPS = 8
 
 
 def acs_bound(S: int, B: int, T: int, R: int, W: int) -> tuple:
     """(ms, resource) of an ACS call: metrics in and out, symbols in,
-    decision words and acc out."""
+    decision words and acc out; the step's 2^R branch metrics once a
+    frame and ACS_OPS a state."""
     nbytes = 4 * (2 * S * B + B * T * R + T * W * B + B)
-    return bound(B * T * S * (ACS_OPS + R), nbytes)
+    return bound(B * T * (S * ACS_OPS + R * 2 ** R), nbytes)
 
 
 def walk_bound(rows: int, B: int, out_bits: int, meta: int) -> tuple:
@@ -279,8 +294,9 @@ def random_code(pt, K: int, rng, R: int = 2):
 
 
 def phase2b(pt, torch_core, plane, dev, rng) -> dict:
-    """Plane kernels vs plain at B=20, T=301 across the class; returns
-    the largest difference seen per kernel (0 when bit-exact)."""
+    """Plane kernels vs plain across the class and each boundary of the
+    ACS's branch-pattern tables; returns the largest difference seen per
+    kernel (0 when bit-exact)."""
     err = {"plane_acs": 0, "plane_walk": 0, "plane_walk_trunc": 0}
     code = pt.get_code("Cassini")
     specs = []
@@ -290,30 +306,34 @@ def phase2b(pt, torch_core, plane, dev, rng) -> dict:
                                        arith=arith)
             specs.append((f"Cassini {mode} {arith}",
                           torch_core.make_static_spec(code, cfg)))
-    for K in (14, 16, 17):
-        c = random_code(pt, K, rng)
-        specs.append((f"{c.name} SOFT8 saturating",
+    for K, R, mode, arith in PLANE_RANDOM:
+        c = random_code(pt, K, rng, R)
+        specs.append((f"{c.name} {mode} {arith}",
                       torch_core.make_static_spec(
-                          c, pt.get_decode_config(pt.DecodeType.SOFT8, 2))))
+                          c, pt.get_decode_config(pt.DecodeType(mode), R,
+                                                  arith=arith))))
     B, T = 20, 301
     for i, (label, spec) in enumerate(specs):
         n = spec.K - 1
-        # symbols past the soft range exercise the wrapper's clamp
-        syms = torch.as_tensor(
-            rng.randint(spec.soft_low - 2, spec.soft_high + 3,
-                        (B, T, spec.R)).astype(np.int32), device=dev)
-        m0 = torch_core.initial_metrics(spec, B, 0, dev)
-        m0 = torch.minimum(m0, torch.as_tensor(
-            rng.randint(0, spec.metric_max + 1, m0.shape).astype(np.int32),
-            device=dev))
-        phase0 = i % n
-        got = plane.acs_plane(spec, m0, syms, phase0=phase0)
-        torch.cuda.synchronize()
-        want = plane.acs_plane_ref(spec, m0, syms, phase0=phase0)
-        e = max(max_abs_diff(g, w) for g, w in zip(got, want))
-        err["plane_acs"] = max(err["plane_acs"], e)
-        require(e == 0, f"plane ACS kernel != plain for {label} (max abs "
-                        f"diff {e})")
+        # one frame at T = 1 and n - 1 (the table pipeline's first steps),
+        # then B frames at T, whose rows the walks read
+        for Bs, Ts in ((1, 1), (1, n - 1), (B, T)):
+            # symbols past the soft range exercise the wrapper's clamp
+            syms = torch.as_tensor(
+                rng.randint(spec.soft_low - 2, spec.soft_high + 3,
+                            (Bs, Ts, spec.R)).astype(np.int32), device=dev)
+            m0 = torch_core.initial_metrics(spec, Bs, 0, dev)
+            m0 = torch.minimum(m0, torch.as_tensor(
+                rng.randint(0, spec.metric_max + 1, m0.shape)
+                .astype(np.int32), device=dev))
+            phase0 = (i + Ts) % n
+            got = plane.acs_plane(spec, m0, syms, phase0=phase0)
+            torch.cuda.synchronize()
+            want = plane.acs_plane_ref(spec, m0, syms, phase0=phase0)
+            e = max(max_abs_diff(g, w) for g, w in zip(got, want))
+            err["plane_acs"] = max(err["plane_acs"], e)
+            require(e == 0, f"plane ACS kernel != plain for {label} B={Bs} "
+                            f"T={Ts} (max abs diff {e})")
         packed = got[1]
         start = torch.as_tensor(rng.randint(0, spec.S, B).astype(np.int32),
                                 device=dev)
@@ -337,9 +357,10 @@ def phase2b(pt, torch_core, plane, dev, rng) -> dict:
             err["plane_walk_trunc"] = max(err["plane_walk_trunc"], e)
             require(e == 0, f"truncated walk kernel != plain for {label} "
                             f"block={blk} overlap={ov}")
-    print(f"phase2b ok: {len(specs)} plane specs at B={B} T={T}, kernel == "
-          f"plain bit-for-bit (ACS metrics/rows/acc at phase0 = i mod n, "
-          f"frame-major walk with rots and valid, truncated walk at "
+    print(f"phase2b ok: {len(specs)} plane specs (K=14..17, R up to 11) at "
+          f"B=1 T in (1, n-1) and B={B} T={T}, kernel == plain bit-for-bit "
+          f"(ACS metrics/rows/acc at phase0 = (i + T) mod n; on the B={B} "
+          f"rows the frame-major walk with rots and valid, truncated walk at "
           f"64/96 and 512/128)", flush=True)
     return err
 

@@ -227,6 +227,29 @@ def test_cuda_device_outside_the_class_raises_not_implemented():
                              device="cuda").backend == "rotated"
 
 
+@pytest.mark.parametrize("K,route", [(5, "lane"), (7, "rotated"),
+                                     (15, "plane")])
+def test_rate_above_16_is_refused_on_cuda_at_construction(K, route):
+    """The kernels take R <= 16: on a CUDA device a rate-1/17 code is
+    refused when the decoder or the stream is built, naming
+    backend="torch", for "auto" and for its named kernel backend; the
+    CPU and backend="torch" construct.  No card is touched."""
+    rng = np.random.RandomState(K)
+    code = pt.CodeSpec(f"K={K} R=1/17", K, tuple(
+        int(rng.randint(0, 1 << K)) | 1 | (1 << (K - 1)) for _ in range(17)))
+    for backend in ("auto", route):
+        with pytest.raises(NotImplementedError, match='backend="torch"'):
+            pt.ViterbiDecoder(code, "SOFT8", backend=backend, device="cuda")
+        with pytest.raises(NotImplementedError, match='backend="torch"'):
+            pt.StreamingDecoder(code, "SOFT8", window=64, chunk=16,
+                                backend=backend, device="cuda")
+    assert pt.ViterbiDecoder(code, "SOFT8", device="cpu").backend == route
+    assert pt.StreamingDecoder(code, "SOFT8", window=64, chunk=16,
+                               device="cpu").backend == route
+    assert pt.ViterbiDecoder(code, "SOFT8", backend="torch",
+                             device="cuda").backend == "torch"
+
+
 @pytest.mark.parametrize("name,mode", [("Basic K=5 R=1/2", "SOFT16"),
                                        ("Basic K=3 R=1/2", "HARD8")])
 def test_small_codes_use_the_plain_scan_on_the_cpu(name, mode):

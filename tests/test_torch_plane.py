@@ -8,8 +8,9 @@ K=14 code (n * WRr = 26 word rows per step), and out-of-range symbols at
 phase0 != 0 and T < n.  Random K=16 and K=17 codes (the kernel's one-block
 and two-block cluster cases on the card) are held against
 jax_core.acs_scan instead (bits through the plane walk, metrics, acc).  Each interpret-mode call takes seconds, so every one is compared
-against several port outputs.  The kernel-vs-plain tests need a card
-(marked ``cuda``).
+against several port outputs.  The CUDA kernel's branch-pattern tables
+are held against the Pallas kernel's branch planes in numpy.  The
+kernel-vs-plain tests need a card (marked ``cuda``).
 """
 
 import numpy as np
@@ -203,11 +204,78 @@ def test_bad_inputs_raise():
     assert len(g) == ts.R and all((x & 1) == 0 for x in g)
 
 
+def _slot_patterns(ts):
+    """(n, S) branch pattern of every slot as the kernel forms it: the
+    thread part of q = (wr << 12) | (k << 7) | lane, computed per step,
+    xor the register part kpat[phi][k] from ``_plane_patterns``."""
+    n = ts.K - 1
+    q = np.arange(ts.S)
+    tb = ((q >> 12) << 12) | (q & 127)
+    kpat = plane._plane_patterns(ts)
+    assert kpat.shape == (n, 32) and kpat.dtype == np.int32
+    out = np.zeros((n, ts.S), np.int64)
+    for phi in range(n):
+        dist = 1 << (n - 1 - phi)
+        tpat = rotated._branch_pattern(ts, rotated._rotr(tb & ~dist, -phi, n))
+        out[phi] = tpat ^ kpat[phi][(q >> 7) & 31]
+    return out
+
+
+@pytest.mark.parametrize("K,R", [(15, 6), (14, 2), (16, 2), (17, 2),
+                                 (14, 11), (16, 9), (17, 12)])
+def test_plane_patterns_rebuild_the_pallas_branch_planes(K, R):
+    """The kernel's branch patterns (thread part xor ``_plane_patterns``)
+    pick high or low on each rate exactly as the Pallas kernel's
+    per-phase, per-slot branch planes do, in every regime: Cassini and
+    random codes at each n of the class, at R=2 and at R above 8 (two
+    pattern tables)."""
+    jcode = vt.get_code("Cassini") if (K, R) == (15, 6) \
+        else _random_code(K, R, K * R)
+    for mode in ("SOFT16", "SOFT8", "HARD8"):
+        js, ts = _spec_pair(jcode, mode)
+        pat = _slot_patterns(ts)                                  # (n, S)
+        bits = (pat[:, None, :] >> np.arange(R)[None, :, None]) & 1
+        table = np.where(bits == 1, ts.soft_high, ts.soft_low)   # (n, R, S)
+        want = bigstate_pallas._phase_bt_planes(js, signs=False)
+        np.testing.assert_array_equal(table, want.reshape(table.shape))
+
+
+@pytest.mark.parametrize("K,R", [(15, 6), (14, 16)])
+def test_step_tables_give_each_slot_its_branch_metric(K, R):
+    """A step's branch-metric tables as the kernel builds them - groups of
+    up to 8 rates, entry e of group g the sum over its rates of
+    |high - sym| (bit set) or |low - sym| - summed over the groups at a
+    slot's pattern give the plain version's per-slot metric, for symbols
+    anywhere in int32's small range."""
+    jcode = vt.get_code("Cassini") if (K, R) == (15, 6) \
+        else _random_code(K, R, 3)
+    _, ts = _spec_pair(jcode, "SOFT16")
+    pat = _slot_patterns(ts)
+    slot_bt = rotated._slot_bt(ts)                                # (n, R, S)
+    rng = np.random.RandomState(K)
+    groups = -(-R // 8)
+    for phi in range(ts.K - 1):
+        sym = rng.randint(-300, 301, R)
+        dl, dh = np.abs(ts.soft_low - sym), np.abs(ts.soft_high - sym)
+        e = np.arange(256)
+        bm = np.zeros(ts.S, np.int64)
+        for g in range(groups):
+            rates = range(8 * g, min(8 * g + 8, R))
+            tab = sum(np.where((e >> (r - 8 * g)) & 1, dh[r], dl[r])
+                      for r in rates)
+            bm += tab[(pat[phi] >> (8 * g)) & 255]
+        np.testing.assert_array_equal(
+            bm, np.abs(slot_bt[phi] - sym[:, None]).sum(axis=0))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("K,R,mode,arith", [(15, 6, "SOFT16", "saturating"),
                                             (14, 2, "HARD8", "wrapping"),
                                             (16, 2, "SOFT8", "saturating"),
-                                            (17, 2, "SOFT16", "wrapping")])
+                                            (17, 2, "SOFT16", "wrapping"),
+                                            (15, 8, "SOFT16", "wrapping"),
+                                            (14, 11, "HARD8", "saturating"),
+                                            (17, 6, "SOFT16", "saturating")])
 def test_cuda_kernel_matches_plain(cuda_device, K, R, mode, arith):
     jcode = vt.get_code("Cassini") if K == 15 else _random_code(K, R, K)
     _, ts = _spec_pair(jcode, mode, arith)

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""A/B of the port's flagship path against an earlier tree's, on one card.
+"""A/B of the port's kernels against an earlier tree's, on one card.
 
-    python3 tools/torch_kernel_ab.py --parent DIR [--out FILE]
+    python3 tools/torch_kernel_ab.py --parent DIR [--path rotated|plane]
+                                     [--out FILE]
 
 DIR is a checkout of the earlier tree (for example ``git archive`` of the
 parent commit, unpacked); its ``viterbidecodercpp_torch`` is imported
 under another name, builds its own kernels into its own ``_build``, and
-runs next to this tree's in one process.  On one CUDA card the script
+runs next to this tree's in one process.  On one CUDA card, with
+``--path rotated`` (the default: the flagship path), the script
 
 * checks both trees give the same ACS outputs, walk bits and decoded bits;
 * times both in turns - earlier, this, this, earlier - (CUDA events,
@@ -22,6 +24,18 @@ runs next to this tree's in one process.  On one CUDA card the script
 * profiles five of this tree's Voyager decodes with ``torch.profiler``:
   device time per kernel and the device's idle share of the window;
 * prints ptxas's register and spill counts for this tree's two sources.
+
+With ``--path plane`` (the big-state path, Cassini K=15 R=1/6 SOFT16) it
+
+* checks both trees give the same plane ACS outputs (B=512, T=2062) and
+  decoded bits;
+* times both in turns - earlier, this, this, earlier - at B=512 T=2062:
+  the plane ACS, ``ViterbiDecoder.decode`` (2048 data bits a frame) and
+  the push of a full stream (window 280, chunk 56);
+* sweeps the batch of both trees' plane ACS at T=2062 over B in {1, 132,
+  264, 265, 512}: two frames share an SM, so B=265 starts a second wave;
+* prints ptxas's register and spill counts for this tree's plane_acs.cu
+  and plane_walk.cu.
 
 It prints one JSON line (also written to FILE).  Imports nothing of JAX.
 """
@@ -47,8 +61,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 import viterbidecodercpp_torch as this  # noqa: E402
 from viterbidecodercpp_torch.ops import _build  # noqa: E402
 
-SOURCES = ("rotated_acs", "chainback")
+SOURCES = {"rotated": ("rotated_acs", "chainback"),
+           "plane": ("plane_acs", "plane_walk")}
 SWEEP_B = (1, 32, 132, 264, 528, 1024, 2048, 4096)
+PLANE_SWEEP_B = (1, 132, 264, 265, 512)
 TURNS = ("earlier", "this", "this", "earlier")
 
 
@@ -76,14 +92,14 @@ def load_package(root: Path, name: str):
     mod = importlib.util.module_from_spec(spec)
     sys.modules[name] = mod
     spec.loader.exec_module(mod)
-    for sub in ("ops.rotated", "ops.chainback", "ops.torch_core",
-                "ops._build"):
+    for sub in ("ops.rotated", "ops.chainback", "ops.plane",
+                "ops.torch_core", "ops._build"):
         importlib.import_module(f"{name}.{sub}")
     return mod
 
 
-def ptxas_report() -> dict:
-    """Registers and spills per kernel of this tree's two sources."""
+def ptxas_report(sources) -> dict:
+    """Registers and spills per kernel of this tree's ``sources``."""
     def one(name):
         proc = subprocess.run(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
@@ -92,8 +108,8 @@ def ptxas_report() -> dict:
         return name, [ln.strip() for ln in proc.stderr.splitlines()
                       if "registers" in ln or "spill" in ln]
 
-    with ThreadPoolExecutor(len(SOURCES)) as pool:
-        return dict(pool.map(one, SOURCES))
+    with ThreadPoolExecutor(len(sources)) as pool:
+        return dict(pool.map(one, sources))
 
 
 def spec_of(pkg, code, mode="SOFT8"):
@@ -158,28 +174,51 @@ def profile_decode(dec, syms, nbits) -> dict:
                                                 key=lambda kv: -kv[1]))}
 
 
-def main() -> None:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--parent", required=True, type=Path)
-    ap.add_argument("--out", type=Path)
-    ap.add_argument("--seed", type=int, default=0)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        raise SystemExit("torch_kernel_ab: needs a CUDA card")
-    rng = np.random.RandomState(args.seed)
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True,
-                          text=True, check=True).stdout.strip()
-    old = load_package(args.parent.resolve(), "viterbidecodercpp_torch_ab")
-    pk = {"earlier": old, "this": this}
-    with ThreadPoolExecutor(2 * len(SOURCES) + 1) as pool:
-        ptxas = pool.submit(ptxas_report)
-        builds = [pool.submit(p.ops._build.load, n)
-                  for p in (old, this) for n in SOURCES]
-        for f in builds:
-            f.result()
-        res = {"card": card, "ptxas": ptxas.result()}
+def plane_ab(pk: dict, rng) -> dict:
+    """The big-state path of both trees: Cassini SOFT16 B=512 T=2062."""
+    res = {}
+    B, N = 512, 2048
+    code = this.get_code("Cassini")
+    T, R = N + code.K - 1, code.R
+    specs = {w: spec_of(p, p.get_code("Cassini"), "SOFT16")
+             for w, p in pk.items()}
+    syms = torch.as_tensor(rng.randint(-127, 128, (B, T, R))
+                           .astype(np.int32), device="cuda")
+    m0 = this.ops.torch_core.initial_metrics(specs["this"], B, 0, "cuda")
+    acs = {w: (lambda p=p, s=specs[w]: p.ops.plane.acs_plane(s, m0, syms))
+           for w, p in pk.items()}
+    same(acs["this"](), acs["earlier"](), "Cassini plane ACS")
+    flat = syms.reshape(B, T * R)
+    decs = {w: p.ViterbiDecoder(p.get_code("Cassini"), "SOFT16",
+                                device="cuda") for w, p in pk.items()}
+    decode = {w: (lambda d=d: d.decode(flat, N)) for w, d in decs.items()}
+    same(decode["this"](), decode["earlier"](), "Cassini decode")
+    pushes = {w: primed_push(p, "Cassini", B, 280, 56, rng)
+              for w, p in pk.items()}
+    res["cassini_soft16_b512_t2062"] = {
+        "acs_ms": in_turns(acs), "decode_ms": in_turns(decode),
+        "push_w280_c56_ms": in_turns(pushes, reps=41, warmup=5)}
+    print(f"plane: {json.dumps(res['cassini_soft16_b512_t2062'])}",
+          flush=True)
+    sweep = []
+    for b in PLANE_SWEEP_B:
+        sb = syms[:b].contiguous()
+        mb = m0[:, :b].contiguous()
+        fb = {w: (lambda p=p, s=specs[w]: p.ops.plane.acs_plane(s, mb, sb))
+              for w, p in pk.items()}
+        same(fb["this"](), fb["earlier"](), f"plane ACS B={b}")
+        sweep.append({"B": b, "this_ms": time_ms(fb["this"]),
+                      "earlier_ms": time_ms(fb["earlier"])})
+        print(f"plane sweep: {json.dumps(sweep[-1])}", flush=True)
+    res["plane_acs_batch_sweep_t2062"] = sweep
+    return res
 
+
+def rotated_ab(pk: dict, rng) -> dict:
+    """The flagship path of both trees: Voyager SOFT8 B=1024 T=2048, the
+    lane walk and two pushes, the ACS batch sweep, every n of the class
+    and a profile of this tree's decode."""
+    res = {}
     # the main path's shape, in turns
     B, N = 1024, 2042
     code = this.get_code("Voyager")
@@ -284,6 +323,34 @@ def main() -> None:
 
     res["profile_this_decode"] = profile_decode(decs["this"], flat, N)
     print(f"profile: {json.dumps(res['profile_this_decode'])}", flush=True)
+    return res
+
+
+def main() -> None:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--parent", required=True, type=Path)
+    ap.add_argument("--path", choices=tuple(SOURCES), default="rotated")
+    ap.add_argument("--out", type=Path)
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("torch_kernel_ab: needs a CUDA card")
+    rng = np.random.RandomState(args.seed)
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True).stdout.strip()
+    old = load_package(args.parent.resolve(), "viterbidecodercpp_torch_ab")
+    pk = {"earlier": old, "this": this}
+    sources = SOURCES[args.path]
+    with ThreadPoolExecutor(2 * len(sources) + 1) as pool:
+        ptxas = pool.submit(ptxas_report, sources)
+        builds = [pool.submit(p.ops._build.load, n)
+                  for p in (old, this) for n in sources]
+        for f in builds:
+            f.result()
+        res = {"card": card, "path": args.path, "ptxas": ptxas.result()}
+    res.update((plane_ab if args.path == "plane" else rotated_ab)(pk, rng))
+
     line = json.dumps(res)
     if args.out:
         args.out.parent.mkdir(parents=True, exist_ok=True)

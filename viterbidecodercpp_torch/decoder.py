@@ -25,7 +25,9 @@ count S = 2**(K-1):
     the shared memory of a cluster of two blocks.
 
 The kernel backends launch CUDA kernels on a CUDA device and run their
-plain versions on the CPU.
+plain versions on the CPU.  The kernels take rates up to 1/16: on a
+CUDA device a code with R > 16 is refused at construction
+(``NotImplementedError``) unless ``backend="torch"``.
 """
 
 from __future__ import annotations
@@ -117,8 +119,16 @@ def select_backend(spec: torch_core.StaticSpec, device: torch.device,
                    backend: str = "auto") -> str:
     """Resolve ``backend`` for a spec on a device (routing by state count,
     see the module docstring); raises for a named backend outside its
-    class and, on a CUDA device, for S > 65536."""
+    class and, on a CUDA device, for S > 65536 and for a kernel backend
+    at R > 16."""
     S = spec.S
+    if device.type == "cuda" and spec.R > torch_core.KERNEL_MAX_RATE \
+            and backend in ("auto", "rotated", "plane", "lane"):
+        raise NotImplementedError(
+            f"no CUDA kernel for rate 1/{spec.R}: the ACS kernels take "
+            f"R <= {torch_core.KERNEL_MAX_RATE} (their tap masks and "
+            f"branch-pattern tables); run such a code with backend=\"torch\" "
+            f"(the plain scan, on the card or the CPU)")
     in_class = rotated.ROTATED_MIN_STATES <= S <= torch_core.MAX_LANE_STATES
     if backend == "auto":
         if in_class:

@@ -27,13 +27,12 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from .torch_core import StaticSpec, acs_scan
+from .torch_core import KERNEL_MAX_RATE, StaticSpec, acs_scan
 
 __all__ = ["supports", "acs_lane", "acs_lane_ref", "MAX_LANE_KERNEL_STATES",
            "LAUNCHES"]
 
 MAX_LANE_KERNEL_STATES = 32   # one warp holds a whole frame
-MAX_RATE = 16                 # VDT_MAX_R in csrc/lane_acs.cu
 
 # Kernel launches by acs_lane (reset and read by chip_smoke.py).
 LAUNCHES = 0
@@ -87,10 +86,9 @@ def acs_lane(spec: StaticSpec, metrics: torch.Tensor, symbols: torch.Tensor
         if x.dtype != torch.int32 or not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous int32 on CUDA, got "
                              f"{x.dtype}, contiguous={x.is_contiguous()}")
-    if spec.R > MAX_RATE:
-        raise ValueError(f"the CUDA lane ACS takes R <= {MAX_RATE}, got "
-                         f"R={spec.R}; the rotated kernel takes the same "
-                         f"bound")
+    if spec.R > KERNEL_MAX_RATE:
+        raise ValueError(f"the CUDA lane ACS takes R <= {KERNEL_MAX_RATE}, "
+                         f"got R={spec.R}")
     if B == 0:
         raise ValueError("empty batch")
     from . import _build

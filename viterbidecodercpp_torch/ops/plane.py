@@ -18,7 +18,8 @@ records each chunk's rotations in ``DecoderState.row_rots``.
 
 Public functions, each with the contract of its JAX namesake:
 
-  * :func:`acs_plane` (kernel ``csrc/plane_acs.cu``), plain version
+  * :func:`acs_plane` (kernel ``csrc/plane_acs.cu``, fed the
+    branch-pattern table of ``_plane_patterns``), plain version
     :func:`acs_plane_ref`;
   * :func:`walk_plane_frames` (kernel ``csrc/plane_walk.cu``), plain
     version :func:`walk_plane_frames_ref`, and :func:`chainback_plane`
@@ -40,14 +41,15 @@ let the ACS write its rows straight into a caller's buffer.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
 
 from . import rotated
-from .torch_core import (MAX_LANE_STATES, StaticSpec, symmetric_amplitude,
-                         wrap_int32)
+from .torch_core import (KERNEL_MAX_RATE, MAX_LANE_STATES, StaticSpec,
+                         symmetric_amplitude, wrap_int32)
 
 __all__ = ["supports", "time_block_rows", "acs_plane", "acs_plane_ref",
            "walk_plane", "walk_plane_frames", "walk_plane_frames_ref",
@@ -178,6 +180,26 @@ def _acs_plain(spec, metrics, symbols, phase0, out, row0):
     return m, out[:, row0:row0 + symbols.shape[1]], acc
 
 
+@functools.lru_cache(maxsize=64)
+def _plane_patterns(spec: StaticSpec) -> np.ndarray:
+    """(n, 32) int32 register parts of the kernel's branch patterns.
+
+    Slot q = (wr << 12) | (k << 7) | lane at phase phi has half-state
+    h = rotl_n(q & ~2^j, phi).  Its thread part (wr << 12) | lane and its
+    register part k << 7 are disjoint bits, the rotation permutes bits
+    and the parity is linear, so its pattern is the xor of
+    ``rotated._branch_pattern`` of rotl_n(thread part & ~2^j, phi), which
+    the kernel computes once a step per thread, and kpat[phi][k]."""
+    n = spec.K - 1
+    regs = np.arange(32, dtype=np.int64) << LANE_BITS
+    kpat = np.zeros((n, 32), np.int32)
+    for phi in range(n):
+        dist = 1 << (n - 1 - phi)
+        kpat[phi] = rotated._branch_pattern(
+            spec, rotated._rotr(regs & ~dist, -phi, n))
+    return kpat
+
+
 def acs_plane_ref(spec: StaticSpec, metrics: torch.Tensor,
                   symbols: torch.Tensor, *, phase0: int = 0,
                   out: Optional[torch.Tensor] = None, row0: int = 0
@@ -209,23 +231,26 @@ def acs_plane(spec: StaticSpec, metrics: torch.Tensor, symbols: torch.Tensor,
     if metrics.device.type == "cpu":
         return _acs_plain(spec, metrics, symbols, phase0, out, row0)
     _check_cuda(metrics=metrics, out=out)
-    if spec.R > rotated.MAX_RATE:
-        raise ValueError(f"the CUDA plane ACS takes R <= {rotated.MAX_RATE}, "
+    if spec.R > KERNEL_MAX_RATE:
+        raise ValueError(f"the CUDA plane ACS takes R <= {KERNEL_MAX_RATE}, "
                          f"got R={spec.R}")
     if B == 0:
         raise ValueError("empty batch")
     symbols = symbols.contiguous()
     g = (ctypes.c_int * spec.R)(*rotated._gmask(spec))
+    kpat = _plane_patterns(spec)
     m_out = torch.empty_like(metrics)
     acc = torch.empty(B, dtype=torch.int32, device=metrics.device)
     _launch("plane_acs", "vdt_plane_acs",
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+            + [ctypes.c_void_p] * 2
             + [ctypes.c_int] * 9 + [ctypes.c_void_p],
             metrics.data_ptr(), symbols.data_ptr(), m_out.data_ptr(),
             out.data_ptr(), acc.data_ptr(), B, T, spec.K, spec.R,
-            ctypes.cast(g, ctypes.c_void_p), spec.soft_high, spec.soft_low,
-            spec.max_error, spec.metric_max, spec.renorm_threshold,
-            int(spec.saturating), phase0, out.shape[1], row0,
+            ctypes.cast(g, ctypes.c_void_p), kpat.ctypes.data, spec.soft_high,
+            spec.soft_low, spec.max_error, spec.metric_max,
+            spec.renorm_threshold, int(spec.saturating), phase0,
+            out.shape[1], row0,
             _stream(metrics.device))
     return m_out, out[:, row0:row0 + T], acc
 

@@ -33,14 +33,14 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .torch_core import MAX_LANE_STATES, StaticSpec, pack_bits
+from .torch_core import (KERNEL_MAX_RATE, MAX_LANE_STATES, StaticSpec,
+                         pack_bits)
 
 __all__ = ["acs_rotated", "acs_rotated_ref", "slot_scan", "kernel_design",
            "ROTATED_MIN_STATES", "WARP_MAX_STATES", "WARP_MAX_RATE",
            "LAUNCHES"]
 
 ROTATED_MIN_STATES = 64
-MAX_RATE = 16          # VDT_MAX_R in csrc/rotated_acs.cu
 # Bounds of the warp-per-frame design (VDT_WARP_MAX_N, VDT_WARP_MAX_R in
 # csrc/rotated_acs.cu): a lane holds S/32 metrics in registers, and a step
 # has at most 2^R <= 32 branch patterns, one per lane.
@@ -229,6 +229,16 @@ def _parity(x: np.ndarray) -> np.ndarray:
     return p
 
 
+def _branch_pattern(spec: StaticSpec, h: np.ndarray) -> np.ndarray:
+    """R-bit branch patterns of half-states ``h``: bit r is
+    parity((h << 1) & g[r]), set where rate r expects the high level (see
+    :func:`_gmask`)."""
+    out = np.zeros(np.shape(h), np.int64)
+    for r, gr in enumerate(_gmask(spec)):
+        out |= _parity((np.asarray(h, np.int64) << 1) & gr) << r
+    return out
+
+
 @functools.lru_cache(maxsize=64)
 def _warp_patterns(spec: StaticSpec) -> Tuple[np.ndarray, np.ndarray]:
     """Branch-pattern tables of the warp design: (apat (n, 32), cpat
@@ -240,22 +250,14 @@ def _warp_patterns(spec: StaticSpec) -> Tuple[np.ndarray, np.ndarray]:
     rotation permutes bits and the parity is linear, the pattern is
     ``apat[phi][l] ^ cpat[phi][k]``: a per-lane and a per-register part."""
     n = spec.K - 1
-    g = _gmask(spec)
-
-    def pattern(x):
-        out = np.zeros_like(x)
-        for r, gr in enumerate(g):
-            out |= _parity((x << 1) & gr) << r
-        return out
-
     lanes = np.arange(32, dtype=np.int64)
     regs = 32 * np.arange(spec.S // 32, dtype=np.int64)
     apat = np.zeros((n, 32), np.int32)
     cpat = np.zeros((n, spec.S // 32), np.int32)
     for phi in range(n):
         dist = 1 << (n - 1 - phi)
-        apat[phi] = pattern(_rotr(lanes & ~dist, -phi, n))
-        cpat[phi] = pattern(_rotr(regs & ~dist, -phi, n))
+        apat[phi] = _branch_pattern(spec, _rotr(lanes & ~dist, -phi, n))
+        cpat[phi] = _branch_pattern(spec, _rotr(regs & ~dist, -phi, n))
     return apat, cpat
 
 
@@ -301,9 +303,9 @@ def acs_rotated(spec: StaticSpec, metrics: torch.Tensor,
         if x.dtype != torch.int32 or not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous int32 on CUDA, got "
                              f"{x.dtype}, contiguous={x.is_contiguous()}")
-    if spec.R > MAX_RATE:
-        raise ValueError(f"the CUDA rotated ACS takes R <= {MAX_RATE}, "
-                         f"got R={spec.R}")
+    if spec.R > KERNEL_MAX_RATE:
+        raise ValueError(f"the CUDA rotated ACS takes R <= "
+                         f"{KERNEL_MAX_RATE}, got R={spec.R}")
     if B == 0:
         raise ValueError("empty batch")
     fn = _launcher()

@@ -46,6 +46,7 @@ __all__ = [
     "chainback_scan",
     "pack_decisions",
     "MAX_LANE_STATES",
+    "KERNEL_MAX_RATE",
     "DECISION_WORD_BITS",
 ]
 
@@ -54,6 +55,10 @@ DECISION_WORD_BITS = 32
 # Upper end of the rotated kernel's class; above it the plane kernels
 # (ops/plane.py) take over, as in the JAX package.
 MAX_LANE_STATES = 4096
+
+# Largest rate R the three CUDA ACS kernels take (VDT_MAX_R in their
+# sources: per-rate tap masks and symbol buffers of fixed size).
+KERNEL_MAX_RATE = 16
 
 
 class StaticSpec(NamedTuple):
