@@ -28,11 +28,16 @@ Phases, in order; any failure raises and exits non-zero:
    from off-reset metrics (metrics, packed rows, acc); on the B=20 rows
    the frame-major walk with random rotations and a valid mask, and the
    truncated walk at block=64/overlap=96 and at its defaults.
-2c. The same for the lane class: the lane ACS kernel on Basic K=3, Basic
-   K=5 and random K=2 (R=3), K=4 (R=5) and K=6 (R=4) codes x the three
-   regimes x both arithmetic modes at B=100 (not a multiple of 32/S),
-   T=301, from off-reset metrics, symbols past the soft range; on its
-   rows the state-order walk kernel.
+2c. The same for the lane class, across every tile and gate boundary of
+   the lane ACS kernel: Basic K=3, Basic K=5 and random K=2 (R=3), K=4
+   (R=5), K=6 (R=4), K=5 (R=9), K=2 (R=16) and K=6 (R=16) codes (both
+   kinds of branch-metric table, the rate loop of R > 5, the 2-step tile)
+   x the three regimes x both arithmetic modes, at B in {1, 3, 100}
+   (frames past B in a live warp) x T in {1, 31, 32, 33} (partial tiles)
+   and at B=100 T=301 into an ``out`` slice of a larger buffer (rows
+   outside it untouched), from off-reset metrics, symbols past the soft
+   range, and from entry metrics near metric_max (the renorm vote fires);
+   on the B=100 rows the state-order walk kernel.
 3. The flagship path at full size: Voyager K=7 R=1/2 SOFT8, B=1024
    frames x 2048 trellis steps (2042 random data bits + 6 tail bits per
    frame), encoded on the card, mild numpy noise, decoded by
@@ -121,6 +126,12 @@ STREAMS = (
 ROTATED_RANDOM = ((8, 2, "SOFT8"), (10, 2, "SOFT16"), (11, 2, "HARD8"),
                   (12, 2, "SOFT8"), (13, 2, "SOFT8"), (8, 5, "SOFT8"),
                   (10, 6, "SOFT16"), (9, 16, "SOFT8"))
+# phase 2c's random codes (K, R) beside Basic K=3 and K=5 (R=2): every n of
+# the class, the per-lane branch metrics (2^R > S), the rate loop of R > 5
+# and the smallest symbol tile (K=2 R=16: 2 steps)
+LANE_RANDOM = ((2, 3), (4, 5), (6, 4), (5, 9), (2, 16), (6, 16))
+LANE_B = (1, 3, 100)
+LANE_T = (1, 31, 32, 33, 301)
 # phase 2b's random codes (K, R, mode, arith) beside Cassini (K=15, R=6):
 # every n of the class, a full 8-rate pattern table, two tables (R > 8) and
 # the K=17 cluster at Cassini's rate
@@ -386,12 +397,13 @@ def add_counts(launches: dict, counts: dict, kernels, what: str) -> None:
 
 
 def phase2c(pt, dev, rng) -> dict:
-    """Lane kernel vs plain at B=100, T=301 across the class; returns the
-    largest difference seen per kernel (0 when bit-exact)."""
+    """Lane kernel vs plain across the class and every tile and gate
+    boundary; returns the largest difference seen per kernel (0 when
+    bit-exact)."""
     from viterbidecodercpp_torch.ops import chainback, lane, torch_core
     err = {"lane_acs": 0, "chainback": 0}
     codes = [pt.get_code("Basic K=3 R=1/2"), pt.get_code("Basic K=5 R=1/2")]
-    codes += [random_code(pt, K, rng, R) for K, R in ((2, 3), (4, 5), (6, 4))]
+    codes += [random_code(pt, K, rng, R) for K, R in LANE_RANDOM]
     specs = []
     for code in codes:
         for mode in MODES:
@@ -400,28 +412,64 @@ def phase2c(pt, dev, rng) -> dict:
                                            arith=arith)
                 specs.append((f"{code.name} {mode} {arith}",
                               torch_core.make_static_spec(code, cfg)))
-    B, T = 100, 301
-    for label, spec in specs:
-        n = spec.K - 1
+
+    def check(label, spec, B, T, near_max=False, out_at=None):
         # symbols past the soft range: the kernel's branch metric is the
         # abs-diff, exact for any symbols
         syms = torch.as_tensor(
             rng.randint(spec.soft_low - 2, spec.soft_high + 3,
                         (B, T, spec.R)).astype(np.int32), device=dev)
-        m0 = torch_core.initial_metrics(spec, B, 0, dev)
-        m0 = torch.minimum(m0, torch.as_tensor(
-            rng.randint(0, spec.metric_max + 1, m0.shape).astype(np.int32),
-            device=dev))
-        got = lane.acs_lane(spec, m0, syms)
+        if near_max:
+            # every state near metric_max: the renorm vote fires often
+            m0 = torch.as_tensor(rng.randint(
+                spec.metric_max - 2 * spec.max_error, spec.metric_max + 1,
+                (spec.S, B)).astype(np.int32), device=dev)
+        else:
+            m0 = torch.minimum(
+                torch_core.initial_metrics(spec, B, 0, dev),
+                torch.as_tensor(rng.randint(0, spec.metric_max + 1,
+                                            (spec.S, B)).astype(np.int32),
+                                device=dev))
+        buf = None
+        if out_at is not None:
+            # out is rows [out_at, out_at + T) of a larger buffer, as a
+            # decoder passes it; the rows around it keep the sentinel
+            buf = torch.full((T + out_at + 4, 1, B), -7, dtype=torch.int32,
+                             device=dev)
+        got = lane.acs_lane(spec, m0, syms, out=None if buf is None
+                            else buf[out_at:out_at + T])
         torch.cuda.synchronize()
         want = lane.acs_lane_ref(spec, m0, syms)
         e = max(max_abs_diff(g, w) for g, w in zip(got, want))
         err["lane_acs"] = max(err["lane_acs"], e)
-        require(e == 0, f"lane ACS kernel != plain for {label} (max abs "
+        what = (f"{label} B={B} T={T}" + (" near metric_max" if near_max
+                                          else "") + (f" into out[{out_at}:]"
+                                                      if buf is not None
+                                                      else ""))
+        require(e == 0, f"lane ACS kernel != plain for {what} (max abs "
                         f"diff {e})")
+        if buf is not None:
+            require(bool((buf[:out_at] == -7).all())
+                    and bool((buf[out_at + T:] == -7).all()),
+                    f"lane ACS wrote rows outside out for {what}")
+            require(got[1].data_ptr() == buf[out_at].data_ptr(),
+                    f"lane ACS rows are not out's view for {what}")
         if spec.S < 32:
             require(bool(((got[1] >> spec.S) == 0).all()),
-                    f"lane ACS words carry bits >= S for {label}")
+                    f"lane ACS words carry bits >= S for {what}")
+        return got, int((got[2] > 0).sum())
+
+    fired = 0
+    for label, spec in specs:
+        n = spec.K - 1
+        # one frame and frames past B in a live warp, at partial, whole and
+        # two tiles (a tile is 32 steps or fewer)
+        for B in LANE_B:
+            for T in LANE_T[:-1]:
+                check(label, spec, B, T)
+        fired += check(label, spec, 3, 33, near_max=True)[1]
+        B, T = LANE_B[-1], LANE_T[-1]
+        got, _ = check(label, spec, B, T, out_at=5)
         ends = torch.as_tensor(rng.randint(0, spec.S, B).astype(np.int32),
                                device=dev)
         walk = chainback.chainback(spec, got[1], ends, T - n)
@@ -430,9 +478,16 @@ def phase2c(pt, dev, rng) -> dict:
                                                        T - n))
         err["chainback"] = max(err["chainback"], e)
         require(e == 0, f"state-order walk kernel != plain for {label}")
-    print(f"phase2c ok: {len(specs)} lane specs at B={B} T={T}, kernel == "
+    require(fired > 0, "the renorm never fired from entry metrics near "
+                       "metric_max")
+    print(f"phase2c ok: {len(specs)} lane specs (K=2..6, R up to 16) at B in "
+          f"{LANE_B} x T in {LANE_T[:-1]} and B={LANE_B[-1]} T={LANE_T[-1]} "
+          f"into out rows [5, {5 + LANE_T[-1]}) of a larger buffer, kernel == "
           f"plain bit-for-bit (ACS metrics/rows/acc from off-reset metrics, "
-          f"symbols past the soft range; state-order walk)", flush=True)
+          f"symbols past the soft range; rows outside out untouched; "
+          f"state-order walk), and from "
+          f"entry metrics near metric_max ({fired} frames renormalised)",
+          flush=True)
     return err
 
 
@@ -459,9 +514,13 @@ def phase3c(pt, dev, rng, launches: dict):
     reset_counts()
     bits, final_err, acc = dec.decode(syms, N)
     state = dec.reset(B)
+    ptr = state.decisions.data_ptr()
     cuts = (0, 333, 1001, T)           # ragged chunk lengths
     for lo, hi in zip(cuts[:-1], cuts[1:]):
         state = dec.update(state, syms[:, lo * R:hi * R])
+        # the kernel writes the chunk's rows into the carry's buffer
+        require(state.decisions.data_ptr() == ptr,
+                "lane update moved the decision buffer")
     ragged = dec.chainback(state, N)
     torch.cuda.synchronize()
     counts = read_counts()
@@ -485,8 +544,9 @@ def phase3c(pt, dev, rng, launches: dict):
     require(torch.equal(state.decisions, ref_p), "lane rows != plain rows")
     print(f"phase3c ok: Basic K=5 SOFT16 B={B} T={T}: {exact}/{B} frames "
           f"exact; bits, final metrics, acc and state-order rows == plain "
-          f"scan; ragged updates of {np.diff(cuts).tolist()} steps agree; "
-          f"launches { {k: counts[k] for k in ('lane_acs', 'chainback')} }",
+          f"scan; ragged updates of {np.diff(cuts).tolist()} steps agree, "
+          f"rows written in place; launches "
+          f"{ {k: counts[k] for k in ('lane_acs', 'chainback')} }",
           flush=True)
     return dec, syms, N
 
@@ -826,7 +886,6 @@ def main() -> None:
     ms["lane_acs"] = time_ms(lambda: lane.acs_lane(spec_l, m0_l, syms3_l))
     plain_ms["lane_acs"] = time_ms(
         lambda: lane.acs_lane_ref(spec_l, m0_l, syms3_l), PLAIN_REPS, 1)
-    transpose_ms = time_ms(lambda: syms3_l.permute(1, 2, 0).contiguous())
     walk_ms_l = time_ms(lambda: chainback.chainback(spec_l, k_out[1],
                                                     ends_l, Nl))
     decode_ms_l = time_ms(lambda: dec_l.decode(syms_l, Nl))
@@ -871,9 +930,8 @@ def main() -> None:
     print(f"phase4 decode: {decode_ms_b:.4f} ms = {rate_b:.4e} decoded "
           f"symbols/s (B*T*R / s, Cassini SOFT16 B={Bb} T={Tb}) on {card}",
           flush=True)
-    print(f"phase4 lane ACS symbol transpose (B, T, R) -> (T, R, B): "
-          f"{transpose_ms:.4f} ms; state-order walk kernel {walk_ms_l:.4f} "
-          f"ms; Basic K=5 SOFT16 B={Bl} T={Tl} on {card}", flush=True)
+    print(f"phase4 state-order walk kernel {walk_ms_l:.4f} ms; Basic K=5 "
+          f"SOFT16 B={Bl} T={Tl} on {card}", flush=True)
     print(f"phase4 decode: {decode_ms_l:.4f} ms = {rate_l:.4e} decoded "
           f"symbols/s (B*T*R / s, Basic K=5 SOFT16 B={Bl} T={Tl}) on {card}",
           flush=True)

@@ -4,8 +4,9 @@ interpret mode here.
 
 Both keep state-order decision rows (rows, W, B) with no row_rots, so the
 carries are compared field for field and checkpoints cross between the
-packages mid-stream in both directions.  Everything is integer: every
-comparison is exact.
+packages mid-stream in both directions; ``update`` writes its rows into
+the carry's buffer in place.  Everything is integer: every comparison is
+exact.
 """
 
 import numpy as np
@@ -150,3 +151,31 @@ def test_noisy_frames_decode_exactly():
                                     backend="pallas").decode(
                                         jnp.asarray(noisy), N)
     _eq(jbits, data)
+
+
+@pytest.mark.parametrize("name,mode,cuts", [
+    ("Basic K=3 R=1/2", "SOFT8", (1, 9, 33, 42)),
+    ("Basic K=5 R=1/2", "HARD8", (31, 32, 44)),
+])
+def test_update_writes_rows_in_place(name, mode, cuts):
+    """The lane route's ACS writes each chunk's rows straight into
+    ``state.decisions`` (``out``): the buffer keeps its storage,
+    the reset carry sees every row, and the rows match the JAX decoder's
+    over ragged cuts."""
+    dec, jdec = _decoders(name, mode, traceback_length=40)
+    code = dec.code
+    B, T = 3, cuts[-1]
+    syms = _syms(code, mode, B, T, seed=len(cuts))
+    s0 = dec.reset(B)
+    ptr = s0.decisions.data_ptr()
+    s, js = s0, jdec.reset(B)
+    lo, R = 0, code.R
+    for hi in cuts:
+        s = dec.update(s, syms[:, lo * R:hi * R])
+        js = jdec.update(js, syms[:, lo * R:hi * R])
+        assert s.decisions.data_ptr() == ptr
+        _eq(s.decisions[:hi], np.asarray(js.decisions)[:hi])
+        lo = hi
+    for f in FIELDS:
+        _eq(getattr(s, f), getattr(js, f))
+    _eq(s0.decisions, js.decisions)

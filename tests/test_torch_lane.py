@@ -7,7 +7,9 @@ Basic K=3, Basic K=5 and random K=2, K=4 and K=6 codes with R = 2..5, in
 all three regimes and both arithmetic modes, from off-reset metrics.  The
 JAX kernel's default branch metric is exact only for symbols in the soft
 range, so out-of-range symbols are held against jax_core.acs_scan.  The
-kernel-vs-plain test needs a card (marked ``cuda``).
+wrapper's cached branch patterns rebuild the JAX spec's branch table, and
+an ``out`` slice of a larger buffer is written and nothing else.  The
+kernel-vs-plain tests need a card (marked ``cuda``).
 """
 
 import numpy as np
@@ -154,3 +156,102 @@ def test_cuda_kernel_matches_plain(cuda_device, code, arith):
     with pytest.raises(ValueError, match="R <= 16"):
         lane.acs_lane(ws, m0, torch.zeros((100, 4, 17), dtype=torch.int32,
                                           device=cuda_device))
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("K", [2, 3, 4, 5, 6])
+def test_cached_patterns_give_the_branch_metric(K, mode):
+    """The kernel's metric of state s, sum_r |(bit r of pattern ? high :
+    low) - sym[r]|, equals sum_r |bt[r][s >> 1] - sym[r]| of the JAX spec,
+    for every rate 1/2 .. 1/16 and symbols past the soft range."""
+    rng = np.random.RandomState(K * 31 + len(mode))
+    for R in range(2, 17):
+        for arith in ARITHS:
+            js, ts = _spec_pair(_random_code(K, R, K * 100 + R), mode, arith)
+            pat = lane._lane_patterns(ts)
+            assert pat is lane._lane_patterns(ts)           # made once
+            assert pat.shape == (ts.S,) and pat.dtype == np.int32
+            assert ((pat >> R) == 0).all()
+            bt = np.asarray(js.bt, dtype=np.int64)            # (R, H)
+            syms = rng.randint(ts.soft_low - 9, ts.soft_high + 10, (7, R))
+            bits = (pat[:, None] >> np.arange(R)) & 1          # (S, R)
+            level = np.where(bits == 1, ts.soft_high, ts.soft_low)
+            got = np.abs(level[None] - syms[:, None]).sum(-1)  # (7, S)
+            h = np.arange(ts.S) >> 1
+            want = np.abs(bt[:, h].T[None] - syms[:, None]).sum(-1)
+            np.testing.assert_array_equal(got, want)
+
+
+def test_patterns_refuse_a_third_table_value():
+    _, ts = _spec_pair(vt.get_code("Basic K=5 R=1/2"), "SOFT8")
+    odd = ts._replace(bt=((ts.soft_high, 0) * (ts.H // 2), ts.bt[1]))
+    with pytest.raises(ValueError, match="soft levels"):
+        lane._lane_patterns(odd)
+
+
+@pytest.mark.parametrize("fn", [lane.acs_lane, lane.acs_lane_ref],
+                         ids=["acs_lane", "acs_lane_ref"])
+@pytest.mark.parametrize("name,mode,arith,row0", [
+    ("Basic K=5 R=1/2", "SOFT16", "saturating", 4),
+    ("Basic K=3 R=1/2", "HARD8", "wrapping", 0),
+])
+def test_out_row0_writes_only_its_rows(fn, name, mode, arith, row0):
+    """``out`` as a decoder passes it: the slice [row0, row0 + T) of a
+    larger row buffer, which alone is written."""
+    code = next(c for c in CODES if c.name == name)
+    js, ts = _spec_pair(code, mode, arith)
+    B, T = 3, 35
+    m0, syms = _inputs(js, B, T, seed=row0 + 17)
+    want = acs_pallas.acs_pallas(js, jnp.asarray(m0), jnp.asarray(syms),
+                                 interpret=True)
+    buf = torch.full((T + row0 + 6, 1, B), -5, dtype=torch.int32)
+    got = fn(ts, torch.as_tensor(m0), torch.as_tensor(syms),
+             out=buf[row0:row0 + T])
+    assert got[1].data_ptr() == buf[row0].data_ptr()
+    assert got[1].shape == (T, 1, B)
+    for g, w in zip(got, want):
+        _eq(g, w)
+    _eq(buf[row0:row0 + T], want[1])
+    assert bool((buf[:row0] == -5).all()) and bool((buf[row0 + T:] == -5)
+                                                   .all())
+
+
+def test_out_row0_errors():
+    _, ts = _spec_pair(vt.get_code("Basic K=3 R=1/2"), "SOFT8")
+    m = torch.zeros((ts.S, 2), dtype=torch.int32)
+    s = torch.zeros((2, 5, ts.R), dtype=torch.int32)
+    buf = torch.zeros((8, 1, 2), dtype=torch.int32)
+    for fn in (lane.acs_lane, lane.acs_lane_ref):
+        with pytest.raises(ValueError, match="out must be"):
+            fn(ts, m, s, out=buf)                     # 8 rows for T=5
+        with pytest.raises(ValueError, match="out must be"):
+            fn(ts, m, s, out=buf[:4])
+        with pytest.raises(ValueError, match="out must be"):
+            fn(ts, m, s, out=buf[:5, :, :1])
+        with pytest.raises(ValueError, match="out must be"):
+            fn(ts, m, s, out=buf[:5].to(torch.int64))
+        with pytest.raises(ValueError, match="out must be"):
+            fn(ts, m, s, out=torch.zeros((2, 1, 5),
+                                         dtype=torch.int32).transpose(0, 2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("K,R", [(2, 16), (5, 9), (6, 16)])
+def test_cuda_kernel_generic_rates(cuda_device, K, R):
+    """R > 5: a metric per lane from the run-time rate loop; K=2 R=16 has
+    the smallest symbol tile (2 steps)."""
+    for mode in MODES:
+        for arith in ARITHS:
+            _, ts = _spec_pair(_random_code(K, R, K + R), mode, arith)
+            for B, T in ((1, 33), (100, 301)):
+                m0, syms = _inputs(ts, B, T, seed=B + T, spread=2)
+                m0 = torch.as_tensor(m0, device=cuda_device)
+                syms = torch.as_tensor(syms, device=cuda_device)
+                buf = torch.full((T + 3, 1, B), -5, dtype=torch.int32,
+                                 device=cuda_device)
+                got = lane.acs_lane(ts, m0, syms, out=buf[2:2 + T])
+                want = lane.acs_lane_ref(ts, m0, syms)
+                for g, w in zip(got, want):
+                    assert torch.equal(g, w)
+                assert bool((buf[:2] == -5).all())
+                assert bool((buf[2 + T:] == -5).all())

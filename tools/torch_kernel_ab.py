@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """A/B of the port's kernels against an earlier tree's, on one card.
 
-    python3 tools/torch_kernel_ab.py --parent DIR [--path rotated|plane]
+    python3 tools/torch_kernel_ab.py --parent DIR [--path rotated|plane|lane]
                                      [--out FILE]
 
 DIR is a checkout of the earlier tree (for example ``git archive`` of the
@@ -37,6 +37,23 @@ With ``--path plane`` (the big-state path, Cassini K=15 R=1/6 SOFT16) it
 * prints ptxas's register and spill counts for this tree's plane_acs.cu
   and plane_walk.cu.
 
+With ``--path lane`` (the lane path, Basic K=5 R=1/2 SOFT16) it
+
+* checks both trees give the same lane ACS outputs (B=512, T=2052) and
+  decoded bits;
+* times both in turns - earlier, this, this, earlier - at B=512 T=2052:
+  the lane ACS and ``ViterbiDecoder.decode`` (2048 data bits a frame);
+* sweeps the batch of both trees' lane ACS at T=2052 over ``SWEEP_B``;
+* times both trees' lane ACS at every n of the class (random K=2..6 R=1/2
+  codes) and at R in {3, 5, 9} (random K=5 codes), B=512, T=2052, each
+  checked equal;
+* times the push again in three rounds of turns, and both trees' lane ACS
+  at the push's shape (B=1024, T=32, clamped symbols) in three rounds:
+  the push is host-bound and its turns spread more than its kernel's;
+* profiles five of this tree's Basic K=5 decodes with ``torch.profiler``;
+* prints ptxas's register and spill counts for this tree's lane_acs.cu
+  and chainback.cu.
+
 It prints one JSON line (also written to FILE).  Imports nothing of JAX.
 """
 
@@ -62,7 +79,8 @@ import viterbidecodercpp_torch as this  # noqa: E402
 from viterbidecodercpp_torch.ops import _build  # noqa: E402
 
 SOURCES = {"rotated": ("rotated_acs", "chainback"),
-           "plane": ("plane_acs", "plane_walk")}
+           "plane": ("plane_acs", "plane_walk"),
+           "lane": ("lane_acs", "chainback")}
 SWEEP_B = (1, 32, 132, 264, 528, 1024, 2048, 4096)
 PLANE_SWEEP_B = (1, 132, 264, 265, 512)
 TURNS = ("earlier", "this", "this", "earlier")
@@ -92,7 +110,7 @@ def load_package(root: Path, name: str):
     mod = importlib.util.module_from_spec(spec)
     sys.modules[name] = mod
     spec.loader.exec_module(mod)
-    for sub in ("ops.rotated", "ops.chainback", "ops.plane",
+    for sub in ("ops.rotated", "ops.chainback", "ops.plane", "ops.lane",
                 "ops.torch_core", "ops._build"):
         importlib.import_module(f"{name}.{sub}")
     return mod
@@ -123,9 +141,10 @@ def same(a, b, what):
                          f"earlier tree")
 
 
-def in_turns(fns: dict, reps: int = 7, warmup: int = 2) -> dict:
+def in_turns(fns: dict, reps: int = 7, warmup: int = 2,
+             rounds: int = 1) -> dict:
     out = {}
-    for who in TURNS:
+    for who in TURNS * rounds:
         out.setdefault(who, []).append(time_ms(fns[who], reps, warmup))
     return out
 
@@ -211,6 +230,84 @@ def plane_ab(pk: dict, rng) -> dict:
                       "earlier_ms": time_ms(fb["earlier"])})
         print(f"plane sweep: {json.dumps(sweep[-1])}", flush=True)
     res["plane_acs_batch_sweep_t2062"] = sweep
+    return res
+
+
+def lane_ab(pk: dict, rng) -> dict:
+    """The lane path of both trees: Basic K=5 SOFT16 B=512 T=2052, the
+    push, the ACS batch sweep, every n and four rates of the class and a
+    profile of this tree's decode."""
+    res = {}
+    name = "Basic K=5 R=1/2"
+    B, N = 512, 2048
+    code = this.get_code(name)
+    T, R = N + code.K - 1, code.R
+    specs = {w: spec_of(p, p.get_code(name), "SOFT16") for w, p in pk.items()}
+    syms = torch.as_tensor(rng.randint(-127, 128, (B, T, R))
+                           .astype(np.int32), device="cuda")
+    m0 = this.ops.torch_core.initial_metrics(specs["this"], B, 0, "cuda")
+    acs = {w: (lambda p=p, s=specs[w]: p.ops.lane.acs_lane(s, m0, syms))
+           for w, p in pk.items()}
+    same(acs["this"](), acs["earlier"](), "Basic K=5 lane ACS")
+    flat = syms.reshape(B, T * R)
+    decs = {w: p.ViterbiDecoder(p.get_code(name), "SOFT16", device="cuda")
+            for w, p in pk.items()}
+    decode = {w: (lambda d=d: d.decode(flat, N)) for w, d in decs.items()}
+    same(decode["this"](), decode["earlier"](), "Basic K=5 decode")
+    res["basic_k5_soft16_b512_t2052"] = {
+        "acs_ms": in_turns(acs), "decode_ms": in_turns(decode)}
+    print(f"lane: {json.dumps(res['basic_k5_soft16_b512_t2052'])}",
+          flush=True)
+
+    # the push, and its lane ACS alone at the push's shape, in three rounds
+    pushes = {w: primed_push(p, name, 1024, 160, 32, rng)
+              for w, p in pk.items()}
+    sp = torch.as_tensor(rng.randint(-127, 128, (1024, 32, R))
+                         .astype(np.int32), device="cuda")
+    mp = this.ops.torch_core.initial_metrics(specs["this"], 1024, 0, "cuda")
+    acs_p = {w: (lambda p=p, s=specs[w]: p.ops.lane.acs_lane(s, mp, sp))
+             for w, p in pk.items()}
+    same(acs_p["this"](), acs_p["earlier"](), "lane ACS B=1024 T=32")
+    res["basic_k5_soft16_push_b1024_w160_c32"] = {
+        "push_ms": in_turns(pushes, reps=41, warmup=5, rounds=3),
+        "acs_b1024_t32_ms": in_turns(acs_p, reps=41, warmup=5, rounds=3)}
+    print(f"lane push: "
+          f"{json.dumps(res['basic_k5_soft16_push_b1024_w160_c32'])}",
+          flush=True)
+
+    sweep = []
+    for b in SWEEP_B:
+        sb = torch.as_tensor(rng.randint(-127, 128, (b, T, R))
+                             .astype(np.int32), device="cuda")
+        mb = this.ops.torch_core.initial_metrics(specs["this"], b, 0, "cuda")
+        fb = {w: (lambda p=p, s=specs[w]: p.ops.lane.acs_lane(s, mb, sb))
+              for w, p in pk.items()}
+        same(fb["this"](), fb["earlier"](), f"lane ACS B={b}")
+        sweep.append({"B": b, "this_ms": time_ms(fb["this"]),
+                      "earlier_ms": time_ms(fb["earlier"])})
+        print(f"lane sweep: {json.dumps(sweep[-1])}", flush=True)
+    res["lane_acs_batch_sweep_t2052"] = sweep
+
+    by_code = []
+    for K, Rk in ((2, 2), (3, 2), (4, 2), (5, 2), (6, 2), (5, 3), (5, 5),
+                  (5, 9)):
+        G = tuple(int(rng.randint(0, 1 << K)) | 1 | (1 << (K - 1))
+                  for _ in range(Rk))
+        sk = {w: spec_of(p, p.CodeSpec(f"K={K} R=1/{Rk}", K, G), "SOFT16")
+              for w, p in pk.items()}
+        syk = torch.as_tensor(rng.randint(-127, 128, (B, T, Rk))
+                              .astype(np.int32), device="cuda")
+        mk = this.ops.torch_core.initial_metrics(sk["this"], B, 0, "cuda")
+        fa = {w: (lambda p=p, s=sk[w]: p.ops.lane.acs_lane(s, mk, syk))
+              for w, p in pk.items()}
+        same(fa["this"](), fa["earlier"](), f"lane ACS K={K} R={Rk}")
+        by_code.append({"K": K, "R": Rk, "this_ms": time_ms(fa["this"]),
+                        "earlier_ms": time_ms(fa["earlier"])})
+        print(f"lane by_code: {json.dumps(by_code[-1])}", flush=True)
+    res["lane_acs_by_code_b512_t2052"] = by_code
+
+    res["profile_this_decode"] = profile_decode(decs["this"], flat, N)
+    print(f"profile: {json.dumps(res['profile_this_decode'])}", flush=True)
     return res
 
 
@@ -349,7 +446,8 @@ def main() -> None:
         for f in builds:
             f.result()
         res = {"card": card, "path": args.path, "ptxas": ptxas.result()}
-    res.update((plane_ab if args.path == "plane" else rotated_ab)(pk, rng))
+    paths = {"rotated": rotated_ab, "plane": plane_ab, "lane": lane_ab}
+    res.update(paths[args.path](pk, rng))
 
     line = json.dumps(res)
     if args.out:

@@ -312,15 +312,13 @@ class ViterbiDecoder:
                 out=state.decisions, row0=cursor)
         else:
             rows = state.decisions[cursor:cursor + nbits]
-            if self._rotated:
+            if self._rotated or self._lane:
                 # the kernel writes the chunk's rows straight into the
                 # buffer (a carry built by hand may not be contiguous)
-                metrics, packed, acc = rotated.acs_rotated(
+                acs = rotated.acs_rotated if self._rotated else lane.acs_lane
+                metrics, packed, acc = acs(
                     spec, state.metrics.contiguous(), syms.contiguous(),
                     out=rows if rows.is_contiguous() else None)
-            elif self._lane:
-                metrics, packed, acc = lane.acs_lane(
-                    spec, state.metrics.contiguous(), syms.contiguous())
             else:
                 metrics, packed, acc = torch_core.acs_scan(
                     spec, state.metrics, syms)

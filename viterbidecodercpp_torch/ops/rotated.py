@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from .torch_core import (KERNEL_MAX_RATE, MAX_LANE_STATES, StaticSpec,
-                         pack_bits)
+                         pack_bits, rows_out)
 
 __all__ = ["acs_rotated", "acs_rotated_ref", "slot_scan", "kernel_design",
            "ROTATED_MIN_STATES", "WARP_MAX_STATES", "WARP_MAX_RATE",
@@ -166,27 +166,12 @@ def slot_scan(spec: StaticSpec, metrics: torch.Tensor,
     return m[perm], acc
 
 
-def _rows_out(spec: StaticSpec, metrics: torch.Tensor, T: int,
-              out: Optional[torch.Tensor]) -> torch.Tensor:
-    """The (T, W, B) tensor that receives the decision rows: ``out`` when
-    given (checked), else a new one."""
-    shape = (T, spec.W, metrics.shape[1])
-    if out is None:
-        return torch.empty(shape, dtype=torch.int32, device=metrics.device)
-    if (tuple(out.shape) != shape or out.dtype != torch.int32
-            or out.device != metrics.device or not out.is_contiguous()):
-        raise ValueError(f"out must be a contiguous int32 {shape} tensor on "
-                         f"{metrics.device}, got {out.dtype} "
-                         f"{tuple(out.shape)} on {out.device}")
-    return out
-
-
 def acs_rotated_ref(spec: StaticSpec, metrics: torch.Tensor,
                     symbols: torch.Tensor, out: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of :func:`acs_rotated`, on any device."""
     B, T = _check(spec, metrics, symbols)
-    packed = _rows_out(spec, metrics, T, out)
+    packed = rows_out(spec, metrics, T, out)
 
     def emit(t, dbit):
         packed[t] = pack_bits(dbit)      # slot p -> bit p%32 of word p>>5
@@ -311,7 +296,7 @@ def acs_rotated(spec: StaticSpec, metrics: torch.Tensor,
     fn = _launcher()
     g, apat, cpat, _ = _launch_tables(spec)
     m_out = torch.empty_like(metrics)
-    packed = _rows_out(spec, metrics, T, out)
+    packed = rows_out(spec, metrics, T, out)
     acc = torch.empty(B, dtype=torch.int32, device=metrics.device)
     with torch.cuda.device(metrics.device):
         stream = torch.cuda.current_stream().cuda_stream

@@ -149,6 +149,21 @@ def pack_bits(bits: torch.Tensor) -> torch.Tensor:
     return wrap_int32(words.sum(dim=1))
 
 
+def rows_out(spec: StaticSpec, metrics: torch.Tensor, T: int,
+             out: Optional[torch.Tensor]) -> torch.Tensor:
+    """The (T, W, B) tensor that receives an ACS call's decision rows:
+    ``out`` when given (checked), else a new one."""
+    shape = (T, spec.W, metrics.shape[1])
+    if out is None:
+        return torch.empty(shape, dtype=torch.int32, device=metrics.device)
+    if (tuple(out.shape) != shape or out.dtype != torch.int32
+            or out.device != metrics.device or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous int32 {shape} tensor on "
+                         f"{metrics.device}, got {out.dtype} "
+                         f"{tuple(out.shape)} on {out.device}")
+    return out
+
+
 def acs_select(spec: StaticSpec, lo: torch.Tensor, hi: torch.Tensor,
                bm: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor,
                                           torch.Tensor, torch.Tensor]:
