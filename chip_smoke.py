@@ -26,8 +26,11 @@ Phases, in order; any failure raises and exits non-zero:
    HARD8 code (two tables) and a K=17 R=1/6 code (the cluster at
    Cassini's rate), each at B=1 with T = 1 and n-1 and at B=20, T=301,
    from off-reset metrics (metrics, packed rows, acc); on the B=20 rows
-   the frame-major walk with random rotations and a valid mask, and the
-   truncated walk at block=64/overlap=96 and at its defaults.
+   the frame-major walk at B=1 and B=20 over N in {1, G-1, G, G+1, 301}
+   rows (G the walk's group size) with random rotations and a valid mask
+   zero on group edges, with rotations alone and with neither, and the
+   truncated walk at block=64/overlap=96, at 16/48 over 37 rows and at
+   its defaults.
 2c. The same for the lane class, across every tile and gate boundary of
    the lane ACS kernel: Basic K=3, Basic K=5 and random K=2 (R=3), K=4
    (R=5), K=6 (R=4), K=5 (R=9), K=2 (R=16) and K=6 (R=16) codes (both
@@ -324,6 +327,8 @@ def phase2b(pt, torch_core, plane, dev, rng) -> dict:
                           c, pt.get_decode_config(pt.DecodeType(mode), R,
                                                   arith=arith))))
     B, T = 20, 301
+    G = 5  # rows a group of the walk kernels (csrc/plane_walk_group.cuh)
+    walk_rows = (1, G - 1, G, G + 1, T)
     for i, (label, spec) in enumerate(specs):
         n = spec.K - 1
         # one frame at T = 1 and n - 1 (the table pipeline's first steps),
@@ -350,29 +355,46 @@ def phase2b(pt, torch_core, plane, dev, rng) -> dict:
                                 device=dev)
         rots = torch.as_tensor(rng.randint(0, n, T).astype(np.int32),
                                device=dev)
-        valid = torch.as_tensor((rng.rand(T) > 0.2).astype(np.int32),
-                                device=dev)
-        walk = plane.walk_plane_frames(spec, packed, start, rots=rots,
-                                       valid=valid)
-        torch.cuda.synchronize()
-        e = max_abs_diff(walk, plane.walk_plane_frames_ref(
-            spec, packed, start, rots=rots, valid=valid))
-        err["plane_walk"] = max(err["plane_walk"], e)
-        require(e == 0, f"plane walk kernel != plain for {label}")
-        for blk, ov in ((64, 96), (512, 128)):
-            tr = plane.chainback_plane_truncated(spec, packed, start, T - n,
-                                                 rots, blk, ov)
+        # chains shorter than, equal to and just past a group, one frame
+        # and B frames (a partial block of warps)
+        for Bs in (1, B):
+            for N in walk_rows:
+                rows = packed[:Bs, :N].contiguous()
+                st = start[:Bs].contiguous()
+                # zeros on the top row of every group and at random
+                valid = (rng.rand(N) > 0.2).astype(np.int32)
+                valid[N - 1::-G] = 0
+                valid = torch.as_tensor(valid, device=dev)
+                for kw in ({"rots": rots, "valid": valid}, {"rots": rots},
+                           {}):
+                    walk = plane.walk_plane_frames(spec, rows, st, **kw)
+                    torch.cuda.synchronize()
+                    e = max_abs_diff(walk, plane.walk_plane_frames_ref(
+                        spec, rows, st, **kw))
+                    err["plane_walk"] = max(err["plane_walk"], e)
+                    require(e == 0, f"plane walk kernel != plain for {label} "
+                                    f"B={Bs} N={N} {sorted(kw)}")
+        # interior cold tiles (64/96), an unaligned 37-row buffer whose
+        # overlap passes the end (16/48), the defaults (512/128)
+        for rows, blk, ov in ((packed, 64, 96), (packed[:, :37], 16, 48),
+                              (packed, 512, 128)):
+            rows = rows.contiguous()
+            tb = rows.shape[1] - n
+            tr = plane.chainback_plane_truncated(spec, rows, start, tb, rots,
+                                                 blk, ov)
             torch.cuda.synchronize()
             e = max_abs_diff(tr, plane.chainback_plane_truncated_ref(
-                spec, packed, start, T - n, rots, blk, ov))
+                spec, rows, start, tb, rots, blk, ov))
             err["plane_walk_trunc"] = max(err["plane_walk_trunc"], e)
             require(e == 0, f"truncated walk kernel != plain for {label} "
-                            f"block={blk} overlap={ov}")
+                            f"block={blk} overlap={ov} rows={rows.shape[1]}")
     print(f"phase2b ok: {len(specs)} plane specs (K=14..17, R up to 11) at "
           f"B=1 T in (1, n-1) and B={B} T={T}, kernel == plain bit-for-bit "
           f"(ACS metrics/rows/acc at phase0 = (i + T) mod n; on the B={B} "
-          f"rows the frame-major walk with rots and valid, truncated walk at "
-          f"64/96 and 512/128)", flush=True)
+          f"rows the frame-major walk of N in {walk_rows} rows at B=1 and "
+          f"B={B} with random rots, a valid mask zero on group edges and "
+          f"neither; the truncated walk at 64/96, 16/48 over 37 rows and "
+          f"512/128)", flush=True)
     return err
 
 

@@ -27,15 +27,21 @@ runs next to this tree's in one process.  On one CUDA card, with
 
 With ``--path plane`` (the big-state path, Cassini K=15 R=1/6 SOFT16) it
 
-* checks both trees give the same plane ACS outputs (B=512, T=2062) and
+* checks both trees give the same plane ACS outputs (B=512, T=2062),
+  exact walk bits, truncated walk bits (block 512, overlap 128) and
   decoded bits;
 * times both in turns - earlier, this, this, earlier - at B=512 T=2062:
-  the plane ACS, ``ViterbiDecoder.decode`` (2048 data bits a frame) and
-  the push of a full stream (window 280, chunk 56);
+  the plane ACS, the exact plane walk and the truncated walk (on the
+  ACS's rows, from random end states) and ``ViterbiDecoder.decode`` (2048
+  data bits a frame); the push of a full stream (window 280, chunk 56) in
+  three rounds of turns (it is host-bound and spreads);
+* sweeps both trees' exact walk over B in {1, 132, 512, 2048} at T=2062
+  (random words filled on the card; B=2048 is an 8.6 GB buffer) and over
+  K = 14, 16 and 17 (random codes, B=512, T=2062), checked equal;
 * sweeps the batch of both trees' plane ACS at T=2062 over B in {1, 132,
   264, 265, 512}: two frames share an SM, so B=265 starts a second wave;
-* prints ptxas's register and spill counts for this tree's plane_acs.cu
-  and plane_walk.cu.
+* prints ptxas's register and spill counts for this tree's plane_acs.cu,
+  plane_walk.cu and plane_walk_trunc.cu.
 
 With ``--path lane`` (the lane path, Basic K=5 R=1/2 SOFT16) it
 
@@ -79,10 +85,12 @@ import viterbidecodercpp_torch as this  # noqa: E402
 from viterbidecodercpp_torch.ops import _build  # noqa: E402
 
 SOURCES = {"rotated": ("rotated_acs", "chainback"),
-           "plane": ("plane_acs", "plane_walk"),
+           "plane": ("plane_acs", "plane_walk", "plane_walk_trunc"),
            "lane": ("lane_acs", "chainback")}
 SWEEP_B = (1, 32, 132, 264, 528, 1024, 2048, 4096)
 PLANE_SWEEP_B = (1, 132, 264, 265, 512)
+WALK_SWEEP_B = (1, 132, 512, 2048)
+WALK_SWEEP_K = (14, 16, 17)
 TURNS = ("earlier", "this", "this", "earlier")
 
 
@@ -212,13 +220,25 @@ def plane_ab(pk: dict, rng) -> dict:
                                 device="cuda") for w, p in pk.items()}
     decode = {w: (lambda d=d: d.decode(flat, N)) for w, d in decs.items()}
     same(decode["this"](), decode["earlier"](), "Cassini decode")
+    rows = acs["this"]()[1]
+    ends = torch.as_tensor(rng.randint(0, specs["this"].S, B)
+                           .astype(np.int32), device="cuda")
+    walk = {w: (lambda p=p, s=specs[w]: p.ops.plane.walk_plane_frames(
+        s, rows, ends)) for w, p in pk.items()}
+    same([walk["this"]()], [walk["earlier"]()], "Cassini plane walk")
+    trunc = {w: (lambda p=p, s=specs[w]: p.ops.plane.chainback_plane_truncated(
+        s, rows, ends, N)) for w, p in pk.items()}
+    same([trunc["this"]()], [trunc["earlier"]()], "Cassini truncated walk")
     pushes = {w: primed_push(p, "Cassini", B, 280, 56, rng)
               for w, p in pk.items()}
     res["cassini_soft16_b512_t2062"] = {
-        "acs_ms": in_turns(acs), "decode_ms": in_turns(decode),
-        "push_w280_c56_ms": in_turns(pushes, reps=41, warmup=5)}
+        "acs_ms": in_turns(acs), "walk_ms": in_turns(walk),
+        "trunc_walk_ms": in_turns(trunc), "decode_ms": in_turns(decode),
+        "push_w280_c56_ms": in_turns(pushes, reps=41, warmup=5, rounds=3)}
     print(f"plane: {json.dumps(res['cassini_soft16_b512_t2062'])}",
           flush=True)
+    del rows
+    res["walk_batch_sweep_t2062"] = walk_sweep(pk, rng)
     sweep = []
     for b in PLANE_SWEEP_B:
         sb = syms[:b].contiguous()
@@ -231,6 +251,35 @@ def plane_ab(pk: dict, rng) -> dict:
         print(f"plane sweep: {json.dumps(sweep[-1])}", flush=True)
     res["plane_acs_batch_sweep_t2062"] = sweep
     return res
+
+
+def walk_sweep(pk: dict, rng) -> list:
+    """Both trees' exact walk on random words filled on the card: Cassini
+    at each B of WALK_SWEEP_B, and random K=14, 16, 17 codes at B=512."""
+    T = 2062
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(int(rng.randint(1 << 30)))
+    cases = [(15, b) for b in WALK_SWEEP_B] + [(K, 512) for K in WALK_SWEEP_K]
+    out = []
+    for K, b in cases:
+        G = tuple(int(rng.randint(0, 1 << K)) | 1 | (1 << (K - 1))
+                  for _ in range(2))
+        sk = {w: spec_of(p, p.get_code("Cassini") if K == 15
+                         else p.CodeSpec(f"K={K}", K, G), "SOFT16")
+              for w, p in pk.items()}
+        words = torch.randint(-2 ** 31, 2 ** 31 - 1,
+                              (b, T, sk["this"].S // 4096, 128),
+                              dtype=torch.int32, device="cuda", generator=gen)
+        st = torch.randint(0, sk["this"].S, (b,), dtype=torch.int32,
+                           device="cuda", generator=gen)
+        fw = {w: (lambda p=p, s=sk[w]: p.ops.plane.walk_plane_frames(
+            s, words, st)) for w, p in pk.items()}
+        same([fw["this"]()], [fw["earlier"]()], f"plane walk K={K} B={b}")
+        out.append({"K": K, "B": b, "buffer_gb": words.numel() * 4 / 1e9,
+                    **{f"{w}_ms": v for w, v in in_turns(fw).items()}})
+        print(f"plane walk sweep: {json.dumps(out[-1])}", flush=True)
+        del words
+    return out
 
 
 def lane_ab(pk: dict, rng) -> dict:

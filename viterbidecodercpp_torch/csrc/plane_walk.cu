@@ -11,43 +11,43 @@
 // emits its bit and keeps the state.  Every row emits its bit.
 //
 // What bounds it on the H100: dependent-load latency.  The word a row
-// reads depends on the state the previous row produced, so each frame is
-// a chain of N loads, and the time is N x memory latency; one word of
-// each row of each frame is read, a small fraction of the buffer.
+// reads depends on the state the row before produced, and a Cassini
+// decision buffer (2 KB a row a frame, 2.16 GB at B=512 T=2062) is far
+// past the 50 MB L2, so a walk that waits for each row pays a
+// device-memory round trip a row (~700 ns measured: 1.42-1.46 ms for 2062
+// rows); more frames or more SMs do not shorten a chain.  The bytes
+// bound (the one word a row a frame the path needs) stays out of reach
+// of any dependent chain.
 //
-// Design: one thread per frame.  The TPU kernel's word-row select tree
-// and lane broadcast (a 128-lane matmul by ones) exist to pick one word
-// out of a vector tile; a thread just loads the word it needs.  The
-// rows of a frame are n_phys apart, so the kernel walks a window
-// [0, N) of a larger buffer in place (the decoder's padded rows are
-// never read).  The bits are stored (B, N) row by row.
+// Design: one warp per frame, 5 rows a group (plane_walk_group.cuh): the
+// 31 candidate words of the group's rows are loaded at once, one round
+// trip for 5 rows, and the rows resolve from a ballot of their bits.
+// Speculation reads up to 31 sectors a group where the path needs 5
+// words: ~0.2 GB at B=512, well under the round trips' time.  The rows of a frame are n_phys apart, so the kernel walks a
+// window [0, N) of a larger buffer in place (the decoder's padded rows
+// are never read); the bits go out (B, N) 32 rows at a time.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-__global__ void plane_walk_kernel(const int* __restrict__ packed,
-                                  const int* __restrict__ start,
-                                  const int* __restrict__ rots,
-                                  const int* __restrict__ valid,
-                                  unsigned char* __restrict__ bits, int N,
-                                  int n_phys, int B, int n) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= B) return;
-  const int smask = (1 << n) - 1;
+#include "plane_walk_group.cuh"
+
+constexpr int kWarps = 4;  // frames a block
+
+template <bool ROTS, bool VALID>
+__global__ void __launch_bounds__(32 * kWarps)
+    plane_walk_kernel(const int* __restrict__ packed,
+                      const int* __restrict__ start,
+                      const int* __restrict__ rots,
+                      const int* __restrict__ valid,
+                      unsigned char* __restrict__ bits, int N, int n_phys,
+                      int B, int n) {
+  const int b = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (b >= B) return;  // a whole warp
   const int W = 1 << (n - 5);  // words per row: WRr * 128
-  const int* pf = packed + (size_t)b * n_phys * W;
-  unsigned char* out = bits + (size_t)b * N;
-  int s = start[b];
-  for (int t = N - 1; t >= 0; --t) {
-    const int rot = rots ? __ldg(rots + t) : (t + 1) % n;
-    const int q = ((s >> rot) | (int)((unsigned)s << (n - rot))) & smask;
-    const int row = q >> 7;
-    const unsigned word =
-        (unsigned)__ldg(pf + (size_t)t * W + ((row >> 5) << 7) + (q & 127));
-    const int d = (int)((word >> (row & 31)) & 1u);
-    out[t] = (unsigned char)d;
-    if (!valid || __ldg(valid + t) != 0) s = (s >> 1) | (d << (n - 1));
-  }
+  plane_walk::walk_chain<ROTS, VALID>(
+      packed + (size_t)b * n_phys * W, W, n, __ldg(start + b), 0, N, rots,
+      valid, bits + (size_t)b * N, 0, N, 0);
 }
 
 extern "C" int vdt_plane_walk(const void* packed, const void* start,
@@ -56,11 +56,25 @@ extern "C" int vdt_plane_walk(const void* packed, const void* start,
   const int n = K - 1;
   if (n < 13 || n > 30 || B < 1 || N < 0 || N > n_phys)
     return (int)cudaErrorInvalidValue;
-  const int threads = 64;
-  const int blocks = (B + threads - 1) / threads;
-  plane_walk_kernel<<<blocks, threads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(packed), static_cast<const int*>(start),
-      static_cast<const int*>(rots), static_cast<const int*>(valid),
-      static_cast<unsigned char*>(bits), N, n_phys, B, n);
+  const int* p = static_cast<const int*>(packed);
+  const int* st = static_cast<const int*>(start);
+  const int* r = static_cast<const int*>(rots);
+  const int* v = static_cast<const int*>(valid);
+  unsigned char* out = static_cast<unsigned char*>(bits);
+  const cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  const int blocks = (B + kWarps - 1) / kWarps;
+  const int threads = 32 * kWarps;
+  if (r && v)
+    plane_walk_kernel<true, true><<<blocks, threads, 0, cs>>>(
+        p, st, r, v, out, N, n_phys, B, n);
+  else if (r)
+    plane_walk_kernel<true, false><<<blocks, threads, 0, cs>>>(
+        p, st, r, v, out, N, n_phys, B, n);
+  else if (v)
+    plane_walk_kernel<false, true><<<blocks, threads, 0, cs>>>(
+        p, st, r, v, out, N, n_phys, B, n);
+  else
+    plane_walk_kernel<false, false><<<blocks, threads, 0, cs>>>(
+        p, st, r, v, out, N, n_phys, B, n);
   return (int)cudaGetLastError();
 }

@@ -14,46 +14,46 @@
 // and the output holds rows [n, total_rows) as (B, total_bits) bits.
 //
 // What bounds it on the H100: dependent-load latency, as in the exact
-// walk, but each chain is only L + O rows long and there are
-// B * ceil(total_rows / L) chains in flight instead of B.  The price is
-// re-reading O rows per tile.
+// walk (plane_walk.cu), but each chain is only L + O rows long and there
+// are B * ceil(total_rows / L) chains in flight instead of B.  Once the
+// chains run in one wave, bytes start to count too: speculation reads up
+// to 31 sectors a 5-row group, ~0.3 GB for Cassini's 2560 chains at B=512
+// (~0.1 ms at 3.35 TB/s, the order of the round trips' time).
 //
-// Design: one thread per (frame, tile), frames on consecutive threads;
-// each thread writes its committed bits straight to their place in the
-// (B, total_bits) output, so no slicing pass follows.
+// Design: one warp per (frame, tile), frames on consecutive warps, on the
+// exact walk's group step (plane_walk_group.cuh): 5 rows a round trip.
+// Each warp writes its committed bits straight to their place in the
+// (B, total_bits) output, 32 rows at a time, so no slicing pass follows.
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
-__global__ void plane_walk_trunc_kernel(const int* __restrict__ packed,
-                                        const int* __restrict__ ends,
-                                        const int* __restrict__ rots,
-                                        unsigned char* __restrict__ bits,
-                                        int B, int NB, int n_phys, int n,
-                                        int total_bits, int L, int O) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= B * NB) return;
+#include "plane_walk_group.cuh"
+
+constexpr int kWarps = 4;  // chains a block
+
+template <bool ROTS>
+__global__ void __launch_bounds__(32 * kWarps)
+    plane_walk_trunc_kernel(const int* __restrict__ packed,
+                            const int* __restrict__ ends,
+                            const int* __restrict__ rots,
+                            unsigned char* __restrict__ bits, int B, int NB,
+                            int n_phys, int n, int total_bits, int L, int O) {
+  const int idx = blockIdx.x * kWarps + (threadIdx.x >> 5);
+  if (idx >= B * NB) return;  // a whole warp
   const int b = idx % B;
   const int tile = idx / B;
-  const int smask = (1 << n) - 1;
   const int W = 1 << (n - 5);  // words per row: WRr * 128
   const int total_rows = total_bits + n;
   const int lo = tile * L;
-  const int* pf = packed + (size_t)b * n_phys * W;
-  unsigned char* out = bits + (size_t)b * total_bits;
-  int s = lo + L + O >= total_rows ? ends[b] : 0;
-  const int top = min(L + O, total_rows - lo);  // rows past the end skip
-  for (int i = top - 1; i >= 0; --i) {
-    const int r = lo + i;
-    const int rot = rots ? __ldg(rots + r) : (r + 1) % n;
-    const int q = ((s >> rot) | (int)((unsigned)s << (n - rot))) & smask;
-    const int row = q >> 7;
-    const unsigned word =
-        (unsigned)__ldg(pf + (size_t)r * W + ((row >> 5) << 7) + (q & 127));
-    const int d = (int)((word >> (row & 31)) & 1u);
-    s = (s >> 1) | (d << (n - 1));
-    if (i < L && r >= n) out[r - n] = (unsigned char)d;
-  }
+  const long long top = (long long)lo + L + O;
+  // rows past the end skip; the tile commits rows [lo, lo + L) from row n
+  const int hi = (int)min(top, (long long)total_rows);
+  const int commit_hi = (int)min((long long)lo + L, (long long)hi);
+  const int s = top >= total_rows ? __ldg(ends + b) : 0;
+  plane_walk::walk_chain<ROTS, false>(
+      packed + (size_t)b * n_phys * W, W, n, s, lo, hi, rots, nullptr,
+      bits + (size_t)b * total_bits, max(lo, n), commit_hi, n);
 }
 
 extern "C" int vdt_plane_walk_trunc(const void* packed, const void* ends,
@@ -68,12 +68,17 @@ extern "C" int vdt_plane_walk_trunc(const void* packed, const void* ends,
   const int NB = (int)((total_rows + block - 1) / block);
   const long long work = (long long)B * NB;
   if (work > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  const int threads = 64;
-  const int blocks = (int)((work + threads - 1) / threads);
-  plane_walk_trunc_kernel<<<blocks, threads, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int*>(packed), static_cast<const int*>(ends),
-      static_cast<const int*>(rots), static_cast<unsigned char*>(bits), B, NB,
-      n_phys, n, total_bits, block, overlap);
+  const int blocks = (int)((work + kWarps - 1) / kWarps);
+  const int* p = static_cast<const int*>(packed);
+  const int* e = static_cast<const int*>(ends);
+  const int* r = static_cast<const int*>(rots);
+  unsigned char* out = static_cast<unsigned char*>(bits);
+  const cudaStream_t cs = static_cast<cudaStream_t>(stream);
+  if (r)
+    plane_walk_trunc_kernel<true><<<blocks, 32 * kWarps, 0, cs>>>(
+        p, e, r, out, B, NB, n_phys, n, total_bits, block, overlap);
+  else
+    plane_walk_trunc_kernel<false><<<blocks, 32 * kWarps, 0, cs>>>(
+        p, e, r, out, B, NB, n_phys, n, total_bits, block, overlap);
   return (int)cudaGetLastError();
 }

@@ -8,7 +8,8 @@ is compiled for Hopper with
          -Xcompiler -fPIC -o <build>/<name>-<hash>.so csrc/<name>.cu
 
 into ``viterbidecodercpp_torch/_build/`` (ignored by git), keyed on a
-hash of the source and the flags, and loaded with ``ctypes``.  Nothing
+hash of the source, every ``csrc/*.cuh`` header and the flags, and loaded
+with ``ctypes``.  Nothing
 here runs at import time: the CPU tests import every module on a machine
 without nvcc.
 """
@@ -25,7 +26,7 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["load", "BUILD_DIR", "CSRC_DIR", "build_seconds"]
+__all__ = ["load", "digest", "BUILD_DIR", "CSRC_DIR", "build_seconds"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
@@ -50,13 +51,21 @@ def _nvcc() -> str:
                        "the CUDA kernels are built from csrc/ at first use")
 
 
+def digest(name: str) -> str:
+    """Build key of ``csrc/<name>.cu``: its bytes, the headers' (any
+    source may include one) and the flags."""
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return h.hexdigest()[:16]
+
+
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
     """Compile ``csrc/<name>.cu`` if its build is missing and load it."""
     src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()
-                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"{name}-{digest}.so"
+    lib = BUILD_DIR / f"{name}-{digest(name)}.so"
     build_seconds[name] = 0.0
     if not lib.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)

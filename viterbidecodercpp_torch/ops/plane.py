@@ -307,6 +307,78 @@ def _walk_plain(spec, packed, start, rows, rots, valid):
     return bits
 
 
+def _walk_groups(spec, packed, start, lo, hi, rots, valid, group):
+    """The walk kernels' group step (csrc/plane_walk_group.cuh, which
+    fixes ``group`` at 5) in plain torch, for the tests: the same
+    candidate nodes and resolve.
+
+    Chain (b, c) walks rows [lo[c], hi[c]) of frame b from start[b, c];
+    returns (B, C, rows) uint8 bits, 0 outside each chain's rows.  Node
+    x = 2^j - 1 + i of a group with top row t0 (heap order) is row t0 - j
+    under path bits i, row t0's highest; every node's word is read, then
+    the rows resolve down the tree, x <- 2x + 1 + bit x."""
+    n = spec.K - 1
+    B, rows = packed.shape[:2]
+    dev = packed.device
+    flat = packed.reshape(B, -1)
+    C = lo.shape[0]
+    x = np.arange((1 << group) - 1)
+    nj = np.array([int(v + 1).bit_length() - 1 for v in x])
+    j = torch.as_tensor(nj, device=dev)
+    i = torch.as_tensor(x + 1 - (1 << nj), device=dev)
+    if rots is None:
+        rots = (torch.arange(rows, device=dev) + 1) % n
+    rots = rots.to(torch.int64)
+    ok = (torch.ones(rows, dtype=torch.bool, device=dev) if valid is None
+          else valid[:rows] != 0)
+    s = start.to(torch.int64).clone()                            # (B, C)
+    bits = torch.zeros((B, C, rows), dtype=torch.uint8, device=dev)
+    groups = int(((hi - lo).clamp(min=0) + group - 1).div(
+        group, rounding_mode="floor").max())
+    for g in range(groups):
+        top = hi - 1 - g * group                                 # (C,)
+        left = (top - lo + 1).clamp(0, group)
+        # each node's state: its j path bits through the valid rows above
+        sc = s[:, :, None].expand(B, C, len(x))
+        for m in range(group - 1):
+            app = (m < j)[None, :] & ok[(top - m).clamp(0, rows - 1)][:, None]
+            bit = (i >> (j - 1 - m).clamp(min=0)) & 1
+            sc = torch.where(app, (sc >> 1) | (bit << (n - 1)), sc)
+        r = (top[:, None] - j[None, :]).clamp(0, rows - 1)       # (C, nodes)
+        d = _plane_bit(spec, flat, r.expand(B, C, len(x)),
+                       _rot_q(sc, rots[r], n))                   # (B, C, nodes)
+        # resolve down the tree: row t0 - m takes node x's bit
+        node = torch.zeros((B, C), dtype=torch.int64, device=dev)
+        for m in range(group):
+            live = (m < left)[None, :]
+            dm = d.gather(2, node[..., None])[..., 0]
+            node = torch.where(live, 2 * node + 1 + dm, node)
+            t = (top - m).clamp(0, rows - 1)
+            s = torch.where(live & ok[t][None, :],
+                            (s >> 1) | (dm << (n - 1)), s)
+            idx = t[None, :, None].expand(B, C, 1)
+            bits.scatter_(2, idx, torch.where(live[..., None],
+                                              dm[..., None].to(torch.uint8),
+                                              bits.gather(2, idx)))
+    return bits
+
+
+def _trunc_groups(spec, packed, end_state, total_bits, rots, L, O, group):
+    """:func:`chainback_plane_truncated` on :func:`_walk_groups`, for the
+    tests: the kernel's tiles, start states and commit rule."""
+    n = spec.K - 1
+    total_rows = total_bits + n
+    NB = -(-total_rows // L)
+    lo = torch.arange(NB, device=packed.device) * L
+    start = torch.where((lo + L + O >= total_rows)[None, :],
+                        end_state.to(torch.int64)[:, None], 0)
+    bits = _walk_groups(spec, packed, start, lo,
+                        (lo + L + O).clamp(max=total_rows), rots, None, group)
+    r = torch.arange(packed.shape[1], device=packed.device)
+    commit = (r[None, :] >= lo[:, None]) & (r[None, :] < lo[:, None] + L)
+    return (bits * commit).sum(dim=1).to(torch.uint8)[:, n:total_rows]
+
+
 def _walk(spec, packed, start, rows, rots, valid, plain):
     dev = _walk_args(spec, packed, start, rots, valid, rows)
     if plain or dev.type == "cpu":
