@@ -8,8 +8,9 @@ Phases, in order; any failure raises and exits non-zero:
 1. Device: requires ``torch.cuda.is_available()``, prints the card's
    name and power limit (nvidia-smi), builds all six CUDA kernels from
    ``viterbidecodercpp_torch/csrc`` with nvcc for sm_90a, one nvcc
-   process per source, all started together (into
-   ``viterbidecodercpp_torch/_build/``), and prints the build times.
+   process per source, and the native host chain (``native/sigchain.cpp``)
+   with g++, all started together (into ``viterbidecodercpp_torch/_build/``),
+   and prints the build times.
 2. Kernel vs plain on the card, bit-exact, across every dispatch boundary
    of the rotated ACS (warp design for S <= 1024 and R <= 5, block design
    above) and the walk (tiled for W <= 8, dependent loads above): the five
@@ -74,12 +75,28 @@ Phases, in order; any failure raises and exits non-zero:
    each whole decode in decoded symbols/s (B*T*R / s), and each stream's
    median ms per push (of 41: a push is host-bound) and streamed
    symbols/s (B*chunk*R / s).
+4d. The BER loop's times (``ber.measure_point``): Voyager SOFT8, 2048-bit
+   blocks, 6 dB (no error stop fires), 256 batches of 256 frames and 64
+   of 1024: decoded data bits/s (median of three points, host clock),
+   ``decode`` alone at the same shape (CUDA events), the loop's overhead
+   share, the device's idle share over 24 batches (``torch.profiler``),
+   and one host-chain point's bits/s (4 batches of 256).
+5. The BER engine against the reference curves: ``measure_point`` on the
+   card at the 48 points tests/test_ber.py gates (8 registry codes x 3
+   regimes x 2 Eb/No; 4096-bit blocks, 1024 for Cassini; budgets for >=
+   10^4 expected errors, at most 6e7 bits) and the Cassini SOFT16 0.5 dB
+   host-chain point, each inside test_ber.py's window (1.3x, widened to
+   5 sigma) of ``data_ber_reference_*.json`` and with at least one error;
+   the rotated, lane and plane kernels must have launched.
+5b. DAB FIC punctured decode (K=7 R=1/4, 21 x PI_16 + 3 x PI_15 + PI_X)
+   in the three regimes on the card, as
+   ``tools/torch_run_punctured_decoder.py`` runs it: 0 bit errors.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is a JSON object with one entry per kernel (launches on the main paths,
 largest difference from the plain version, ms, plain_ms, bound_ms,
-bound_by, bound_share, library_ms) and the decode and stream times.
-Imports nothing of JAX.
+bound_by, bound_share, library_ms), the decode and stream times and the
+BER loop's.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -148,6 +165,49 @@ SWEEP_EBNO_DB = 3.0
 SWEEP_WINDOWS = (64, 128, 256)
 SWEEP_CHUNK = 32
 SWEEP_END_BITS = 64
+# phase 4d: the BER loop at an Eb/No where no error stop fires (a few
+# errors in 1e8 bits), a fixed budget of LOOP_BATCHES batches of 256
+# frames (a quarter as many of 1024)
+LOOP_CODE, LOOP_MODE, LOOP_BLOCK, LOOP_EBNO_DB = "Voyager", "SOFT8", 2048, 6.0
+LOOP_BATCHES = 256
+LOOP_PROFILE_BATCHES = 24
+HOST_CHAIN_BATCHES = 4
+# phase 5: the points tests/test_ber.py gates (code -> regime -> Eb/No)
+# and the reference curves they are held against
+BER_POINTS = {
+    "Voyager": {"SOFT16": (2.0, 3.0), "SOFT8": (2.0, 3.0),
+                "HARD8": (3.0, 4.0)},
+    "CDMA IS-95A": {"SOFT16": (2.0, 2.5), "SOFT8": (2.0, 2.5),
+                    "HARD8": (3.0, 3.5)},
+    "Cassini": {"SOFT16": (0.0, 0.5), "SOFT8": (0.5, 1.0),
+                "HARD8": (1.5, 2.0)},
+    "Basic K=3 R=1/2": {"SOFT16": (2.0, 3.0), "SOFT8": (2.5, 3.5),
+                        "HARD8": (3.5, 4.5)},
+    "Basic K=5 R=1/2": {"SOFT16": (2.0, 3.0), "SOFT8": (2.5, 3.5),
+                        "HARD8": (3.5, 4.5)},
+    "LTE": {"SOFT16": (1.5, 2.5), "SOFT8": (1.5, 2.5), "HARD8": (2.5, 3.5)},
+    "DAB Radio": {"SOFT16": (1.5, 2.5), "SOFT8": (1.5, 2.5),
+                  "HARD8": (2.5, 3.5)},
+    "CDMA 2000": {"SOFT16": (1.0, 2.0), "SOFT8": (1.0, 2.0),
+                  "HARD8": (2.0, 3.0)},
+}
+BER_FILES = {"Voyager": "data_ber_reference_voyager.json",
+             "CDMA IS-95A": "data_ber_reference_k9_k15.json",
+             "Cassini": "data_ber_reference_k9_k15.json",
+             "Basic K=3 R=1/2": "data_ber_reference_5codes.json",
+             "Basic K=5 R=1/2": "data_ber_reference_5codes.json",
+             "LTE": "data_ber_reference_5codes.json",
+             "DAB Radio": "data_ber_reference_5codes.json",
+             "CDMA 2000": "data_ber_reference_5codes.json"}
+# the host-chain point (code, regime, Eb/No, seed), block 1024, 64 frames
+BER_HOST_CHAIN = ("Cassini", "SOFT16", 0.5, 3)
+# tests/test_ber.py's window is Poisson's, but Viterbi errors come in
+# bursts (one error event flips ~5-30 bits), so the count of a point
+# spreads several times wider than Poisson's at its 300 expected errors:
+# phase 5 draws for 10^4 (same cap, same window)
+BER_WANT_ERRORS = 10_000
+BER_KERNELS = ("rotated_acs", "chainback", "lane_acs", "plane_acs",
+               "plane_walk")
 
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet; the Hopper white paper
@@ -226,6 +286,32 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60)
     return out.stdout.strip().splitlines()[0]
+
+
+def profile_idle(fn) -> dict:
+    """``torch.profiler`` over one call of ``fn``: the device's busy time
+    (the kernels' own time) and its idle share of the wall-clock window."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    busy = 0.0
+    for e in prof.key_averages():
+        # an aten:: operator's self device time is that of the kernels it
+        # launched, which appear under their own names: count those only
+        if e.key.startswith("aten::"):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        busy += max(us, 0)
+    require(busy > 0, "the profiler saw no device time")
+    return {"window_ms": window_us / 1e3, "device_busy_ms": busy / 1e3,
+            "idle_share": 1 - busy / window_us}
 
 
 def phase2(pt, torch_core, rotated, chainback, dev, rng) -> dict:
@@ -684,6 +770,195 @@ def phase3d(pt, dev, rng, launches: dict, seed: int) -> list:
     return timed
 
 
+def phase4d(pt, dev, card: str) -> dict:
+    """The BER loop's times: ``measure_point`` against ``decode`` alone at
+    B=256 and B=1024, the device's idle share in the loop, and one
+    host-chain point."""
+    from viterbidecodercpp_torch import ber
+    code = pt.get_code(LOOP_CODE)
+    cfg = pt.get_decode_config(pt.DecodeType(LOOP_MODE), code.R)
+
+    def gen(seed):
+        g = torch.Generator(device=dev)
+        g.manual_seed(seed)
+        return g
+
+    out = {"code": f"{LOOP_CODE} {LOOP_MODE}", "block_bits": LOOP_BLOCK,
+           "EbNo_dB": LOOP_EBNO_DB}
+    for B in (256, 1024):
+        n = LOOP_BATCHES * 256 // B
+        budget = n * B * LOOP_BLOCK
+
+        def point(batches, seed):
+            return ber.measure_point(
+                code, cfg, LOOP_EBNO_DB, generator=gen(seed),
+                block_bits=LOOP_BLOCK, batch=B,
+                max_bits=batches * B * LOOP_BLOCK, device=dev)
+
+        point(4, 0)                                  # warm-up
+        secs = []
+        for rep in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p = point(n, rep + 1)
+            secs.append(time.perf_counter() - t0)
+            require(p.total_bits == budget,
+                    f"BER loop B={B} at {LOOP_EBNO_DB} dB stopped early: {p}")
+        syms, _ = ber.draw_batch(code, cfg, LOOP_EBNO_DB, gen(5), B,
+                                 LOOP_BLOCK)
+        dec = pt.ViterbiDecoder(code, cfg, traceback_length=LOOP_BLOCK,
+                                device=dev)
+        syms = syms.reshape(B, -1)
+        dec_ms = time_ms(lambda: dec.decode(syms, LOOP_BLOCK))
+        batch_ms = statistics.median(secs) / n * 1e3
+        prof = profile_idle(lambda: point(LOOP_PROFILE_BATCHES, 9))
+        row = {"batches": n, "bits": budget, "seconds": secs,
+               "bits_per_s": budget / statistics.median(secs),
+               "ms_per_batch": batch_ms, "decode_ms": dec_ms,
+               "decode_bits_per_s": B * LOOP_BLOCK / (dec_ms / 1e3),
+               "overhead_share": 1 - dec_ms / batch_ms,
+               f"profile_{LOOP_PROFILE_BATCHES}_batches": prof}
+        out[f"B={B}"] = row
+        print(f"phase4d BER loop {LOOP_CODE} {LOOP_MODE} block {LOOP_BLOCK} "
+              f"B={B}, {n} batches at {LOOP_EBNO_DB} dB: measure_point "
+              f"{row['bits_per_s']:.4e} decoded bits/s ({batch_ms:.4f} ms a "
+              f"batch, median of 3 points); decode alone {dec_ms:.4f} ms = "
+              f"{row['decode_bits_per_s']:.4e} bits/s; loop overhead share "
+              f"{row['overhead_share']:.4f}; device idle share "
+              f"{prof['idle_share']:.4f} over {LOOP_PROFILE_BATCHES} batches "
+              f"(torch.profiler); on {card}", flush=True)
+    hc_bits = HOST_CHAIN_BATCHES * 256 * LOOP_BLOCK
+    ber.measure_point_host_chain(code, cfg, LOOP_EBNO_DB, seed=0,
+                                 block_bits=LOOP_BLOCK,
+                                 max_bits=256 * LOOP_BLOCK, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    p = ber.measure_point_host_chain(code, cfg, LOOP_EBNO_DB, seed=1,
+                                     block_bits=LOOP_BLOCK, max_bits=hc_bits,
+                                     device=dev)
+    secs = time.perf_counter() - t0
+    require(p.total_bits == hc_bits,
+            f"host-chain point at {LOOP_EBNO_DB} dB stopped early: {p}")
+    out["host_chain"] = {"bits": hc_bits, "seconds": secs,
+                         "bits_per_s": hc_bits / secs}
+    print(f"phase4d host chain {LOOP_CODE} {LOOP_MODE} block {LOOP_BLOCK} "
+          f"B=256, {HOST_CHAIN_BATCHES} batches: {hc_bits / secs:.4e} "
+          f"decoded bits/s (native mt19937 channel on the host, decode on "
+          f"the card); on {card}", flush=True)
+    return out
+
+
+def ber_reference(name: str, mode: str) -> dict:
+    """Eb/No -> BER of the in-repo reference curve for (code, regime)."""
+    from pathlib import Path
+    path = Path(__file__).resolve().parent / BER_FILES[name]
+    with open(path) as f:
+        for rec in json.load(f):
+            if rec["name"] == name and rec["decode_type"] == mode:
+                return dict(zip(rec["EbNo_dB"], rec["ber"]))
+    raise SmokeFailure(f"no reference curve for {name} {mode} in {path}")
+
+
+def ber_budget(r: float) -> int:
+    """Bits for >= BER_WANT_ERRORS expected errors, at most 6e7 bits
+    (tests/test_ber.py:70-72, there with 300 expected errors)."""
+    return min(int(BER_WANT_ERRORS / max(r, 1e-9)), 60_000_000)
+
+
+def ber_window(r: float, errors: int) -> tuple:
+    """tests/test_ber.py:85-91: a 1.3x window around the reference BER,
+    widened to 5 sigma of the observed count."""
+    sigma_rel = 5.0 / max(np.sqrt(max(errors, 1)), 1.0)
+    return (min(r / 1.3, r * (1 - sigma_rel)),
+            max(r * 1.3, r * (1 + sigma_rel)))
+
+
+def phase5(pt, dev, launches: dict, seed: int) -> dict:
+    """The BER engine on the card at every point tests/test_ber.py gates,
+    and its host-chain point, each held against the reference curves."""
+    import zlib
+    from viterbidecodercpp_torch import ber
+    rows, outside = [], []
+
+    def check(label, r, p):
+        lo, hi = ber_window(r, p.total_bit_errors)
+        # a point with no error at all lies in every window that the 5
+        # sigma widening opens below zero: it fails here
+        ok = p.total_bit_errors > 0 and lo <= p.ber <= hi
+        peak = torch.cuda.max_memory_allocated(dev) / 2**20
+        rows.append({"point": label, "ber": p.ber, "reference": r,
+                     "bits": p.total_bits, "errors": p.total_bit_errors,
+                     "inside": ok, "peak_mib": peak})
+        print(f"phase5 {label}: BER {p.ber:.4e} ({p.total_bit_errors}/"
+              f"{p.total_bits}), reference {r:.4e}, window [{lo:.4e}, "
+              f"{hi:.4e}] {'ok' if ok else 'OUTSIDE'}; peak device memory "
+              f"{peak:.1f} MiB", flush=True)
+        if not ok:
+            outside.append(label)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    for name, regimes in BER_POINTS.items():
+        code = pt.get_code(name)
+        block = 1024 if name == "Cassini" else 4096
+        for mode, points in regimes.items():
+            ref = ber_reference(name, mode)
+            cfg = pt.get_decode_config(pt.DecodeType(mode), code.R)
+            g = torch.Generator(device=dev)
+            g.manual_seed(zlib.crc32(f"{name}/{mode}".encode()) + seed)
+            for EbNo in points:
+                r = ref[EbNo]
+                torch.cuda.reset_peak_memory_stats(dev)
+                p = ber.measure_point(code, cfg, EbNo, generator=g,
+                                      block_bits=block,
+                                      max_bits=ber_budget(r),
+                                      max_errors=100_000, device=dev)
+                check(f"{name} {mode} {EbNo} dB block {block}", r, p)
+    name, mode, EbNo, hc_seed = BER_HOST_CHAIN
+    code = pt.get_code(name)
+    r = ber_reference(name, mode)[EbNo]
+    torch.cuda.reset_peak_memory_stats(dev)
+    p = ber.measure_point_host_chain(
+        code, pt.get_decode_config(pt.DecodeType(mode), code.R), EbNo,
+        seed=hc_seed, block_bits=1024, batch=64, max_bits=ber_budget(r),
+        max_errors=100_000, device=dev)
+    check(f"{name} {mode} {EbNo} dB block 1024 host chain", r, p)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = read_counts()
+    add_counts(launches, counts, BER_KERNELS, "the BER engine")
+    require(not outside, f"{len(outside)} BER points outside their windows: "
+                         f"{outside}")
+    bits = sum(row["bits"] for row in rows)
+    print(f"phase5 ok: {len(rows)} BER points ({len(rows) - 1} on the card, "
+          f"one host chain) inside tests/test_ber.py's windows of the "
+          f"reference curves; {bits} bits in {secs:.2f} s; launches "
+          f"{ {k: counts[k] for k in BER_KERNELS} }", flush=True)
+    return {"points": rows, "bits": bits, "seconds": secs}
+
+
+def phase5b(dev, launches: dict) -> None:
+    """DAB FIC punctured decode in the three regimes on the card, as
+    tools/torch_run_punctured_decoder.py runs it: 0 bit errors."""
+    from tools.torch_run_punctured_decoder import decode_dab_fic
+    reset_counts()
+    rows = decode_dab_fic(dev)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    add_counts(launches, counts, ("rotated_acs", "chainback"),
+               "the punctured decode")
+    for regime, backend, kept, syms, errors, nbits, _ in rows:
+        require(backend == "rotated", f"DAB FIC {regime} took the {backend} "
+                                      f"backend")
+        require(errors == 0, f"DAB FIC {regime}: {errors} of {nbits} bits "
+                             f"wrong after depuncturing")
+    print(f"phase5b ok: DAB FIC K=7 R=1/4, 21 x PI_16 + 3 x PI_15 + PI_X, "
+          f"{rows[0][3]} -> {rows[0][2]} symbols, {rows[0][5]} data bits: 0 "
+          f"bit errors in {[r[0] for r in rows]}; launches "
+          f"{ {k: counts[k] for k in ('rotated_acs', 'chainback')} }",
+          flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -694,6 +969,7 @@ def main() -> None:
     import viterbidecodercpp_torch as pt
     from viterbidecodercpp_torch.ops import (_build, chainback, encoder,
                                              lane, plane, rotated, torch_core)
+    from viterbidecodercpp_torch.utils import native
 
     dev = torch.device("cuda", 0)
     rng = np.random.RandomState(args.seed)
@@ -705,13 +981,18 @@ def main() -> None:
           f"device {torch.cuda.get_device_name(0)} x "
           f"{torch.cuda.device_count()}", flush=True)
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(KERNELS)) as pool:
+    with ThreadPoolExecutor(len(KERNELS) + 1) as pool:
+        host_lib = pool.submit(native.ensure_built)
         list(pool.map(_build.load, KERNELS))
+        host_lib.result()
     for name in KERNELS:
         print(f"phase1 built {name}: nvcc {_build.build_seconds[name]:.2f} s",
               flush=True)
-    print(f"phase1 all {len(KERNELS)} kernels built and loaded in "
-          f"{time.perf_counter() - t0:.2f} s (parallel nvcc)", flush=True)
+    print(f"phase1 built the native host chain (native/sigchain.cpp): g++ "
+          f"{native.build_seconds:.2f} s", flush=True)
+    print(f"phase1 all {len(KERNELS)} kernels and the host chain built and "
+          f"loaded in {time.perf_counter() - t0:.2f} s (parallel nvcc, g++)",
+          flush=True)
 
     # -- phase 2: kernels vs plain across each class --------------------
     err = phase2(pt, torch_core, rotated, chainback, dev, rng)
@@ -963,6 +1244,15 @@ def main() -> None:
               f"{t['streamed_symbols_per_s']:.4e} streamed symbols/s "
               f"(B*chunk*R / s) on {card}", flush=True)
 
+    # -- phase 4d: the BER loop's times -----------------------------------
+    ber_loop = phase4d(pt, dev, card)
+
+    # -- phase 5: the BER engine against the reference curves -------------
+    ber_points = phase5(pt, dev, launches, args.seed)
+
+    # -- phase 5b: DAB FIC punctured decode ---------------------------------
+    phase5b(dev, launches)
+
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
@@ -978,7 +1268,9 @@ def main() -> None:
         "cassini_decoded_symbols_per_s": rate_b,
         "lane_decode_ms": decode_ms_l,
         "lane_decoded_symbols_per_s": rate_l,
-        "streams": stream_times}), flush=True)
+        "streams": stream_times, "ber_loop": ber_loop,
+        "ber_points": {k: ber_points[k] for k in ("bits", "seconds")}}),
+        flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

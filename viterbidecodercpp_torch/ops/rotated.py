@@ -157,7 +157,7 @@ def slot_scan(spec: StaticSpec, metrics: torch.Tensor,
         dbit = torch.where(odd, c_hi, c_lo)
         # renorm: state 0 is slot 0 at every phase
         gate = nm[0] >= spec.renorm_threshold
-        mins = nm.min(dim=0).values
+        mins = nm.amin(dim=0)
         sub = torch.where(gate, mins, torch.zeros_like(mins))
         m = nm - sub[None, :]
         acc = acc + sub

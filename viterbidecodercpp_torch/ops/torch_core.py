@@ -226,7 +226,7 @@ def _renormalise(spec: StaticSpec, metrics: torch.Tensor
 
     metrics: (S, B); returns (renormalised metrics, subtracted (B,))."""
     gate = metrics[0, :] >= spec.renorm_threshold
-    mins = metrics.min(dim=0).values
+    mins = metrics.amin(dim=0)
     sub = torch.where(gate, mins, torch.zeros_like(mins))
     return metrics - sub[None, :], sub
 

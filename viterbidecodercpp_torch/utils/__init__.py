@@ -1,1 +1,2 @@
-"""Host/device utilities: test-signal generation."""
+"""Host/device utilities: test-signal generation and the native host
+chain."""

@@ -76,17 +76,19 @@ def awgn_quantize(float_syms: torch.Tensor, generator: torch.Generator,
     else:
         low = config.soft_decision_low
     dev = float_syms.device
-    sigma = torch.tensor(awgn_sigma(EbNo_dB, code_rate), dtype=torch.float32,
-                         device=dev)
+
+    def f32(x):
+        # a fill, not a copy from the host: a copy would sync the device
+        return torch.full((), x, dtype=torch.float32, device=dev)
+
+    sigma = f32(awgn_sigma(EbNo_dB, code_rate))
     noise = torch.randn(float_syms.shape, generator=generator,
                         dtype=torch.float32, device=dev)
     noisy = float_syms + sigma * noise
     mean = (high + low) / 2.0
     mag = (high - low) / 2.0
     norm = 1.0 / torch.sqrt(1.0 + sigma * sigma)
-    scale = torch.tensor(mag, dtype=torch.float32, device=dev) * norm
-    q = round_half_away(noisy * scale + torch.tensor(
-        mean, dtype=torch.float32, device=dev))
+    q = round_half_away(noisy * (f32(mag) * norm) + f32(mean))
     return torch.clamp(q, low, high).to(torch.int32)
 
 
