@@ -91,18 +91,45 @@ Phases, in order; any failure raises and exits non-zero:
 5b. DAB FIC punctured decode (K=7 R=1/4, 21 x PI_16 + 3 x PI_15 + PI_X)
    in the three regimes on the card, as
    ``tools/torch_run_punctured_decoder.py`` runs it: 0 bit errors.
+6. The parallel layer (``viterbidecodercpp_torch/parallel``): the script
+   spawns itself as 4 gloo ranks sharing the first card (halos and
+   counters staged through host memory) and, on a machine with two or
+   more cards, as min(4, cards) NCCL ranks, one a card; any rank's
+   failure fails the run.  The ranks load the kernels phase 1 built (none
+   rebuilds) and drive, at full width: time-SP of Voyager SOFT16 (rotated
+   route) and Basic K=5 SOFT16 (lane route), B=1024 x 131072 data bits,
+   overlaps 256 and 160, and Cassini SOFT16 (plane route), B=128 x 16384
+   bits, overlap 128, over a time axis of all ranks, all through the AWGN
+   channel at 3 dB; the Voyager stream again on a (data=2, time=2) mesh;
+   frame-DP of Voyager SOFT8, 1024 frames x 2042 bits a rank at 2 dB; and
+   data-parallel BER points (``group=``), Voyager SOFT8, 2048-bit blocks,
+   256 frames a rank, 8 batches at 6 and 2 dB.  The parent holds every SP
+   result to the single-process ``ViterbiDecoder.decode`` of the same
+   stream on the card (0 halo mismatches), the frame-DP bits and error
+   total to one decode of all ranks' frames and the ranks' own counts, and
+   the BER totals to the sum of the ranks' own points from the same
+   generators.  Each rank then holds the layer through the kernels to the
+   layer through their plain versions (``plain=True``) on its own
+   full-width tile of each time-SP case above, with the shapes,
+   rotations, uniform starts and ``valid`` mask the main path gave the
+   kernels, and to the plain versions and the plain scan at B=61, a
+   301-row tile a rank, overlap 64, with and without 150 rows of padding
+   past ``total_rows`` on the three routes (bits and mismatch count).  It
+   prints each rank's tile and exchange time (CUDA events), the whole
+   call (host clock) and the single-process decode's time.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is a JSON object with one entry per kernel (launches on the main paths,
 largest difference from the plain version, ms, plain_ms, bound_ms,
 bound_by, bound_share, library_ms), the decode and stream times and the
-BER loop's.  Imports nothing of JAX.
+BER loop's, and phase 6's results and times.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -959,13 +986,424 @@ def phase5b(dev, launches: dict) -> None:
           flush=True)
 
 
+# -- phase 6: the parallel layer -------------------------------------------
+# Ranks are this script run with --rank by phase 6's parent: four gloo ranks
+# sharing cuda:0, and min(4, cards) NCCL ranks (one a card) when the machine
+# has two or more cards.
+
+# full-width time-SP cases: (label, stream, frames, data bits, overlap,
+# data-axis size, route); "2-D" decodes the "rotated" case's stream on a
+# (data=2, time=world/2) mesh
+SP_STREAMS = {"Voyager": ("Voyager", "SOFT16", 1024, 131072),
+              "Basic K=5": ("Basic K=5 R=1/2", "SOFT16", 1024, 131072),
+              "Cassini": ("Cassini", "SOFT16", 128, 16384)}
+SP_CASES = (("rotated", "Voyager", 256, 1, "rotated"),
+            ("lane", "Basic K=5", 160, 1, "lane"),
+            ("plane", "Cassini", 128, 1, "plane"),
+            ("2-D", "Voyager", 256, 2, "rotated"))
+SP_EBNO_DB = 3.0
+ROUTE_KERNELS = {"rotated": ("rotated_acs", "chainback"),
+                 "lane": ("lane_acs", "chainback"),
+                 "plane": ("plane_acs", "plane_walk")}
+# the layer through the kernels against its plain versions: B=61, a tile
+# of 301 rows a rank, overlap 64, the stream's true end at the last row
+# and 150 rows before it
+CHECK_B, CHECK_L, CHECK_O, CHECK_PADS = 61, 301, 64, (0, 150)
+CHECK_STREAMS = {"rotated": "Voyager", "lane": "Basic K=5",
+                 "plane": "Cassini"}
+# frame-DP: Voyager SOFT8, 1024 frames x 2048 rows a rank, AWGN
+DP_CODE, DP_MODE, DP_B, DP_BITS, DP_EBNO_DB = "Voyager", "SOFT8", 1024, \
+    2042, 2.0
+# data-parallel BER points: Voyager SOFT8, 2048-bit blocks, 256 frames a
+# rank, 8 batches, at each Eb/No (an error budget no point reaches: a
+# point that stops on its errors sums them over the ranks a batch, the
+# ranks' own points each stop on their own)
+BER_DP_EBNO_DB, BER_DP_BLOCK, BER_DP_B, BER_DP_BATCHES = (6.0, 2.0), 2048, \
+    256, 8
+BER_DP_MAX_ERRORS = 1 << 30
+
+
+def sp_stream(pt, stream: str, nbits: int, B: int, ntime: int, seed: int,
+              dev, rows: int = 0):
+    """(code, config, (B, T', R) symbols, T): ``stream``'s code through
+    the AWGN channel at SP_EBNO_DB from a generator seeded ``seed``, T rows
+    zero-padded to T' = ``rows`` or else a multiple of ntime."""
+    from viterbidecodercpp_torch.utils import testsig
+    name, mode = SP_STREAMS[stream][:2]
+    code = pt.get_code(name)
+    config = pt.get_decode_config(pt.DecodeType(mode), code.R)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    tx = torch.randint(0, 2, (B, nbits), generator=g, dtype=torch.uint8,
+                       device=dev)
+    syms = testsig.awgn_quantize(testsig.modulate_encode(code, tx), g,
+                                 SP_EBNO_DB, code.R, config)
+    T = syms.shape[1]
+    pad = (rows or -(-T // ntime) * ntime) - T
+    if pad:
+        syms = torch.cat([syms, syms.new_zeros(B, pad, code.R)], dim=1)
+    return code, config, syms, T
+
+
+def stream_seed(seed: int, stream: str) -> int:
+    return seed * 1000 + list(SP_STREAMS).index(stream)
+
+
+def dp_frames(pt, seed: int, rank: int, dev):
+    """Rank ``rank``'s frame-DP frames: (code, config, symbols, data)."""
+    from viterbidecodercpp_torch.utils import testsig
+    code = pt.get_code(DP_CODE)
+    config = pt.get_decode_config(pt.DecodeType(DP_MODE), code.R)
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed * 1000 + 100 + rank)
+    tx = torch.randint(0, 2, (DP_B, DP_BITS), generator=g,
+                       dtype=torch.uint8, device=dev)
+    syms = testsig.awgn_quantize(testsig.modulate_encode(code, tx), g,
+                                 DP_EBNO_DB, code.R, config)
+    return code, config, syms, tx
+
+
+def phase6_rank(args) -> None:
+    """One rank of phase 6: the layer's main path at full width (time-SP on
+    three routes and a 2-D mesh, frame-DP, data-parallel BER points), then
+    the kernel-vs-plain checks; writes its results to ``args.work``."""
+    import torch.distributed as dist
+
+    import viterbidecodercpp_torch as pt
+    from viterbidecodercpp_torch import ber
+    from viterbidecodercpp_torch.ops import _build, torch_core
+    from viterbidecodercpp_torch.parallel import block_sp, frame_dp, launch
+    from viterbidecodercpp_torch.parallel.mesh import make_mesh
+
+    rank, world = args.rank, args.world
+    dev = launch.initialize(args.init_method, world, rank,
+                            backend=args.backend, device="cuda")
+    for name in KERNELS:
+        _build.load(name)
+    out = {"rank": rank, "device": str(dev),
+           "nvcc_seconds": sum(_build.build_seconds.values()), "sp": {}}
+    arrays = {}
+
+    def mesh_for(ndata: int):
+        if ndata == 1:
+            return make_mesh((world,), ("time",), "cuda"), \
+                (None, "time", None)
+        return make_mesh((ndata, world // ndata), ("data", "time"), "cuda"), \
+            ("data", "time", None)
+
+    # -- the main path: every count from here to read_counts() ------------
+    reset_counts()
+    for label, stream, overlap, ndata, route in SP_CASES:
+        if world % ndata or world == ndata:
+            continue
+        mesh, axes = mesh_for(ndata)
+        B, nbits = SP_STREAMS[stream][2:]
+        code, config, syms, T = sp_stream(
+            pt, stream, nbits, B, world // ndata, stream_seed(args.seed,
+                                                              stream), dev)
+        spec = torch_core.make_static_spec(code, config)
+        tile = launch.local_block(syms, mesh, axes).contiguous()
+        del syms
+        res = block_sp.decode_stream_sp(spec, mesh, tile, overlap=overlap,
+                                        total_rows=T, backend=route,
+                                        device=dev)
+        timings = {}
+        torch.cuda.synchronize()
+        dist.barrier()
+        t0 = time.perf_counter()
+        again = block_sp.decode_stream_sp(
+            spec, mesh, tile, overlap=overlap, total_rows=T, backend=route,
+            device=dev, timings=timings)
+        wall = time.perf_counter() - t0
+        require(torch.equal(again.bits, res.bits)
+                and int(again.halo_mismatches) == int(res.halo_mismatches),
+                f"{label}: a second call decoded differently")
+        arrays[label] = np.packbits(res.bits.cpu().numpy(), axis=1)
+        out["sp"][label] = {
+            "mism": int(res.halo_mismatches), "tile_ms": 1e3 * timings["tile"],
+            "exchange_ms": 1e3 * timings["exchange"], "wall_ms": 1e3 * wall,
+            "frames": tile.shape[0], "rows": tile.shape[1], "T": T}
+        del tile, res, again
+
+    code, config, syms, tx = dp_frames(pt, args.seed, rank, dev)
+    bits, errs = frame_dp.decode_dp(code, config, syms, DP_BITS,
+                                    reference_bits=tx,
+                                    group=dist.group.WORLD, device=dev)
+    arrays["frame_dp"] = np.packbits(bits.cpu().numpy(), axis=1)
+    out["frame_dp"] = {"errs": int(errs), "own": int((bits != tx).sum())}
+
+    points = []
+    for i, ebno in enumerate(BER_DP_EBNO_DB):
+        p = ber.measure_point(
+            code, config, ebno,
+            generator=ber.rank_generator(args.seed, i, rank, dev),
+            block_bits=BER_DP_BLOCK, batch=BER_DP_B,
+            max_bits=BER_DP_BATCHES * world * BER_DP_B * BER_DP_BLOCK,
+            max_errors=BER_DP_MAX_ERRORS, group=dist.group.WORLD, device=dev)
+        points.append([p.total_bits, p.total_bit_errors])
+    torch.cuda.synchronize()
+    out["launches"] = read_counts()
+
+    # -- comparisons (their launches are not counted) ----------------------
+    out["ber"] = []
+    for i, ebno in enumerate(BER_DP_EBNO_DB):
+        q = ber.measure_point(
+            code, config, ebno,
+            generator=ber.rank_generator(args.seed, i, rank, dev),
+            block_bits=BER_DP_BLOCK, batch=BER_DP_B,
+            max_bits=BER_DP_BATCHES * BER_DP_B * BER_DP_BLOCK,
+            max_errors=BER_DP_MAX_ERRORS, device=dev)
+        out["ber"].append({"EbNo_dB": ebno, "group": points[i],
+                           "alone": [q.total_bits, q.total_bit_errors]})
+    out["check"] = {}
+    # the kernels against their plain versions on the main path's own
+    # full-width tiles: halo + tile from uniform metrics, per-tile
+    # rotations, the last tile's valid mask and end state
+    for label, stream, overlap, ndata, route in SP_CASES:
+        if label not in out["sp"]:
+            continue
+        mesh, axes = mesh_for(ndata)
+        B, nbits = SP_STREAMS[stream][2:]
+        code, config, syms, T = sp_stream(
+            pt, stream, nbits, B, world // ndata, stream_seed(args.seed,
+                                                              stream), dev)
+        spec = torch_core.make_static_spec(code, config)
+        tile = launch.local_block(syms, mesh, axes).contiguous()
+        del syms
+        t0 = time.perf_counter()
+        ref = block_sp.decode_stream_sp(spec, mesh, tile, overlap=overlap,
+                                        total_rows=T, backend=route,
+                                        plain=True, device=dev)
+        L = tile.shape[1]
+        got = np.unpackbits(arrays[label], axis=1, count=L)
+        e = int((got != ref.bits.cpu().numpy()).sum()) + abs(
+            int(ref.halo_mismatches) - out["sp"][label]["mism"])
+        require(e == 0, f"phase6 rank {rank}: the {route} route's kernels "
+                        f"!= their plain versions on the {label} case's "
+                        f"full-width tile ({tile.shape[0]} frames x {L} "
+                        f"rows, overlap {overlap})")
+        out["check"][f"{route}/{label} full width"] = {
+            "max_abs_err": e, "mism": int(ref.halo_mismatches),
+            "seconds": time.perf_counter() - t0}
+        del tile, ref
+    mesh, axes = mesh_for(1)
+    for route, stream in CHECK_STREAMS.items():
+        for pad in CHECK_PADS:
+            rows = world * CHECK_L
+            K = pt.get_code(SP_STREAMS[stream][0]).K
+            code, config, syms, T = sp_stream(
+                pt, stream, rows - pad - (K - 1), CHECK_B, world,
+                stream_seed(args.seed, stream) + 7 + pad, dev, rows)
+            g = torch.Generator(device=dev)
+            g.manual_seed(args.seed + pad)
+            # random symbols past the true end: only `valid` keeps them out
+            syms[:, T:] = torch.randint(-127, 128, syms[:, T:].shape,
+                                        generator=g, dtype=torch.int32,
+                                        device=dev)
+            require(syms.shape[1] == rows, "check stream rows")
+            spec = torch_core.make_static_spec(code, config)
+            tile = launch.local_block(syms, mesh, axes)
+            got = {v: block_sp.decode_stream_sp(
+                       spec, mesh, tile, overlap=CHECK_O, total_rows=T,
+                       backend=b, plain=p, device=dev)
+                   for v, b, p in (("kernels", route, False),
+                                   ("plain", route, True),
+                                   ("torch", "torch", False))}
+            e = max(max_abs_diff(got["kernels"].bits, got[v].bits)
+                    + abs(int(got["kernels"].halo_mismatches)
+                          - int(got[v].halo_mismatches))
+                    for v in ("plain", "torch"))
+            require(e == 0, f"phase6 rank {rank}: the {route} route's "
+                            f"kernels != their plain versions at B="
+                            f"{CHECK_B}, padding {pad}")
+            out["check"][f"{route}/B={CHECK_B} padding {pad}"] = {
+                "max_abs_err": e, "mism": int(got["kernels"].halo_mismatches)}
+    np.savez(os.path.join(args.work, f"rank{rank}.npz"), **arrays)
+    with open(os.path.join(args.work, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+
+
+def run_fleet(backend: str, world: int, seed: int, work: str) -> list:
+    """Spawn phase 6's ranks and return their results (rank order): gloo
+    ranks all on the first card, NCCL ranks one a card."""
+    from viterbidecodercpp_torch.parallel import launch
+    me = os.path.abspath(__file__)
+    launch.spawn_fleet(
+        lambda r, init: [sys.executable, me, "--rank", str(r), "--world",
+                         str(world), "--init-method", init, "--backend",
+                         backend, "--work", work, "--seed", str(seed)],
+        world, timeout=600,
+        env={"CUDA_VISIBLE_DEVICES": "0"} if backend == "gloo" else None)
+    res = []
+    for r in range(world):
+        with open(os.path.join(work, f"rank{r}.json")) as f:
+            out = json.load(f)
+        with np.load(os.path.join(work, f"rank{r}.npz")) as z:
+            out["bits"] = {k: z[k] for k in z.files}
+        res.append(out)
+    return res
+
+
+def phase6(pt, dev, card: str, launches: dict, err: dict, seed: int,
+           backends=("gloo", "nccl")) -> dict:
+    """The parallel layer: spawn the fleets, hold their results against
+    the single-process decode of the same streams on this card, print the
+    times; returns the JSON line's ``parallel`` entry.  ``backends`` picks
+    the fleets (a four-card run of the NCCL fleet alone passes
+    ``("nccl",)``)."""
+    import tempfile
+    torch.cuda.empty_cache()
+    cards = torch.cuda.device_count()
+    fleets = [("gloo", 4)] + ([("nccl", min(4, cards))] if cards >= 2
+                              else [])
+    fleets = [f for f in fleets if f[0] in backends]
+    print(f"phase6 fleets: {', '.join(f'{w} {b} ranks' for b, w in fleets)}"
+          f" ({cards} card(s); gloo ranks share cuda:0 and stage halos "
+          f"through host memory"
+          f"{'' if cards >= 2 else '; no NCCL fleet on one card'})",
+          flush=True)
+    results = {}
+    for backend, world in fleets:
+        with tempfile.TemporaryDirectory() as work:
+            t0 = time.perf_counter()
+            results[backend] = run_fleet(backend, world, seed, work)
+            secs = time.perf_counter() - t0
+        ranks = results[backend]
+        require(all(r["nvcc_seconds"] == 0 for r in ranks),
+                "a rank rebuilt a kernel")
+        counts = {k: sum(r["launches"][k] for r in ranks) for k in KERNELS}
+        add_counts(launches, counts,
+                   sorted({k for route in ROUTE_KERNELS.values()
+                           for k in route}), f"phase 6's {backend} fleet")
+        for r in ranks:
+            for key, c in r["check"].items():
+                for name in ROUTE_KERNELS[key.split("/")[0]]:
+                    err[name] = max(err[name], c["max_abs_err"])
+        full = {k: [round(r["check"][k]["seconds"], 3) for r in ranks]
+                for k in ranks[0]["check"] if "full width" in k}
+        print(f"phase6 {backend} fleet: {world} ranks ran in {secs:.1f} s; "
+              f"the kernels inside the layer == its plain versions on every "
+              f"rank's full-width tile of the main path's time-SP cases "
+              f"(plain decode seconds a rank {full}), and == the plain "
+              f"versions and the plain scan at B={CHECK_B}, {CHECK_L} rows "
+              f"a tile, overlap {CHECK_O}, padding {list(CHECK_PADS)} rows; "
+              f"halo mismatches "
+              f"{ {k: c['mism'] for k, c in ranks[0]['check'].items()} }; "
+              f"launches { {k: v for k, v in counts.items() if v} }",
+              flush=True)
+
+    out = {"fleets": {b: w for b, w in fleets}, "sp": {}}
+    for label, stream, overlap, ndata, route in SP_CASES:
+        name, mode, B, nbits = SP_STREAMS[stream]
+        code, config, syms, T = sp_stream(pt, stream, nbits, B, 1,
+                                          stream_seed(seed, stream), dev)
+        dec = pt.ViterbiDecoder(code, config, device=dev)
+        require(dec.backend == route, f"{label}: the decoder took "
+                                      f"{dec.backend}")
+        flat = syms.reshape(B, -1)
+        del syms
+        single, _, _ = dec.decode(flat, nbits)
+        single = single.cpu().numpy()
+        single_ms = time_ms(lambda: dec.decode(flat, nbits), 3, 1)
+        del flat
+        for backend, ranks in results.items():
+            world = len(ranks)
+            if world % ndata or world == ndata:
+                continue
+            ntime = world // ndata
+            Bl = B // ndata
+            got = np.zeros((B, ntime * ranks[0]["sp"][label]["rows"]),
+                           np.uint8)
+            for r in ranks:
+                d, t = divmod(r["rank"], ntime)
+                L = r["sp"][label]["rows"]
+                got[d * Bl:(d + 1) * Bl, t * L:(t + 1) * L] = np.unpackbits(
+                    r["bits"][label], axis=1, count=L)
+                require(r["sp"][label]["mism"] == 0,
+                        f"{label} ({backend}): {r['sp'][label]['mism']} "
+                        f"halo mismatches")
+            wrong = int((got[:, code.K - 1:code.K - 1 + nbits]
+                         != single).sum())
+            require(wrong == 0, f"{label} ({backend}): {wrong} bits differ "
+                                f"from the single-process decode")
+            sp = [r["sp"][label] for r in ranks]
+            row = {"frames": B, "rows": T, "overlap": overlap,
+                   "mesh": [ndata, ntime], "route": route,
+                   "tile_ms": [s["tile_ms"] for s in sp],
+                   "exchange_ms": [s["exchange_ms"] for s in sp],
+                   "wall_ms": [s["wall_ms"] for s in sp],
+                   "single_decode_ms": single_ms}
+            out["sp"][f"{label}/{backend}"] = row
+            print(f"phase6 ok: time-SP {label} ({route}) {name} {mode} "
+                  f"B={B} x {nbits} bits (T={T}), overlap {overlap}, mesh "
+                  f"data={ndata} x time={ntime}, {backend}: bits == the "
+                  f"single-process decode, 0 halo mismatches; per rank tile "
+                  f"{[round(x, 3) for x in row['tile_ms']]} ms, exchange "
+                  f"{[round(x, 3) for x in row['exchange_ms']]} ms (CUDA "
+                  f"events), whole call "
+                  f"{[round(x, 3) for x in row['wall_ms']]} ms (host clock); "
+                  f"single-process decode {single_ms:.4f} ms (CUDA events, "
+                  f"median of 3); on {card}",
+                  flush=True)
+        del single
+
+    for backend, ranks in results.items():
+        world = len(ranks)
+        frames = [dp_frames(pt, seed, r, dev) for r in range(world)]
+        code, config = frames[0][:2]
+        syms = torch.cat([f[2] for f in frames]).reshape(world * DP_B, -1)
+        dec = pt.ViterbiDecoder(code, config, device=dev)
+        single, _, _ = dec.decode(syms, DP_BITS)
+        got = np.concatenate([np.unpackbits(r["bits"]["frame_dp"], axis=1,
+                                            count=DP_BITS) for r in ranks])
+        require(np.array_equal(got, single.cpu().numpy()),
+                f"frame-DP ({backend}) bits != the single-process decode")
+        totals = {r["frame_dp"]["errs"] for r in ranks}
+        own = sum(r["frame_dp"]["own"] for r in ranks)
+        require(totals == {own} and own > 0,
+                f"frame-DP ({backend}): error totals {totals}, the ranks' "
+                f"own counts sum to {own}")
+        del frames, syms, single
+        ber_rows = []
+        for i, ebno in enumerate(BER_DP_EBNO_DB):
+            group = {tuple(r["ber"][i]["group"]) for r in ranks}
+            alone = [sum(r["ber"][i]["alone"][j] for r in ranks)
+                     for j in (0, 1)]
+            require(group == {tuple(alone)} and alone[0] == BER_DP_BATCHES
+                    * world * BER_DP_B * BER_DP_BLOCK,
+                    f"BER point at {ebno} dB ({backend}): group totals "
+                    f"{group}, the ranks' own points sum to {alone}")
+            ber_rows.append({"EbNo_dB": ebno, "bits": alone[0],
+                             "errors": alone[1]})
+        out[f"frame_dp/{backend}"] = {"errors": own}
+        out[f"ber/{backend}"] = ber_rows
+        print(f"phase6 ok: frame-DP {DP_CODE} {DP_MODE} {world} x {DP_B} "
+              f"frames x {DP_BITS} bits at {DP_EBNO_DB} dB ({backend}): bits "
+              f"== the single-process decode, error total {own} == the "
+              f"ranks' own counts; BER points group= == the sum of the "
+              f"ranks' own points: "
+              f"{[(r['EbNo_dB'], r['bits'], r['errors']) for r in ber_rows]}",
+              flush=True)
+    return out
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    # phase 6's ranks (the script spawns them itself)
+    ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--world", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--init-method", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--backend", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--work", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; "
                          "this run needs a CUDA card")
+    if args.rank is not None:
+        phase6_rank(args)
+        return
     import viterbidecodercpp_torch as pt
     from viterbidecodercpp_torch.ops import (_build, chainback, encoder,
                                              lane, plane, rotated, torch_core)
@@ -1253,6 +1691,9 @@ def main() -> None:
     # -- phase 5b: DAB FIC punctured decode ---------------------------------
     phase5b(dev, launches)
 
+    # -- phase 6: the parallel layer -----------------------------------------
+    parallel = phase6(pt, dev, card, launches, err, args.seed)
+
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
@@ -1269,7 +1710,8 @@ def main() -> None:
         "lane_decode_ms": decode_ms_l,
         "lane_decoded_symbols_per_s": rate_l,
         "streams": stream_times, "ber_loop": ber_loop,
-        "ber_points": {k: ber_points[k] for k in ("bits", "seconds")}}),
+        "ber_points": {k: ber_points[k] for k in ("bits", "seconds")},
+        "parallel": parallel}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

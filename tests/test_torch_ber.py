@@ -6,29 +6,81 @@ batch's decode-and-count fed the JAX package's own channel output, and
 the stopping arithmetic (bit budget, error budget, timeout slices).  The
 device loop draws from a torch.Generator, not a jax.random key, so its
 curve is held statistically against the in-repo CPU curve, with
-tests/test_ber.py's window.
+tests/test_ber.py's window.  The data-parallel point (``group=``) runs
+in a fleet of gloo ranks on the CPU, which run this file as a script and
+import no jax.
 """
 
 import json
 import os
+import sys
 
-import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
-import viterbidecodercpp_torch as pt
-import viterbidecodercpp_tpu as vt
-from viterbidecodercpp_torch import ber
-from viterbidecodercpp_torch.utils import native
-from viterbidecodercpp_tpu import ber as jax_ber
-from viterbidecodercpp_tpu.ops import jax_core
-from viterbidecodercpp_tpu.utils import native as jax_native
-from viterbidecodercpp_tpu.utils import testsig as jax_testsig
-
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if ROOT not in sys.path:
+    sys.path.insert(0, ROOT)
 
+import viterbidecodercpp_torch as pt  # noqa: E402
+from viterbidecodercpp_torch import ber  # noqa: E402
+from viterbidecodercpp_torch.parallel import launch  # noqa: E402
+
+WORLD = 4
+# the data-parallel points: Basic K=3 SOFT16 at 1 dB, 64-bit blocks, two
+# frames a rank a batch (STEP bits a batch over the fleet)
+DP_CODE, DP_MODE, DP_EBNO, DP_BLOCK, DP_BATCH = \
+    "Basic K=3 R=1/2", "SOFT16", 1.0, 64, 2
+DP_STEP = WORLD * DP_BATCH * DP_BLOCK
+DP_SEED = 7
+# point -> (generator index, max_bits, rank 0's timeout)
+DP_POINTS = {"five": (0, 5 * DP_STEP, None),
+             "five_again": (0, 5 * DP_STEP, None),
+             "past": (1, 5 * DP_STEP // 2, None),
+             "timeout": (2, 100 * DP_STEP, 1e-9)}
+
+
+def _dp_kw():
+    code = pt.get_code(DP_CODE)
+    return code, pt.get_decode_config(pt.DecodeType(DP_MODE), code.R), \
+        dict(block_bits=DP_BLOCK, batch=DP_BATCH, max_errors=10 ** 6,
+             device="cpu")
+
+
+def _rank_main(rank: int, init_method: str, out: str) -> None:
+    """Every DP_POINTS point over the fleet; rank 0 alone has a timeout
+    on the "timeout" point."""
+    import torch.distributed as dist
+
+    launch.initialize(init_method, WORLD, rank, device="cpu")
+    code, config, kw = _dp_kw()
+    got = {}
+    for name, (index, max_bits, timeout) in DP_POINTS.items():
+        p = ber.measure_point(
+            code, config, DP_EBNO,
+            generator=ber.rank_generator(DP_SEED, index, rank, "cpu"),
+            max_bits=max_bits, group=dist.group.WORLD,
+            timeout_seconds=timeout if rank == 0 else None, **kw)
+        got[name] = [p.total_bits, p.total_bit_errors]
+    with open(out, "w") as f:
+        json.dump(got, f)
+    dist.destroy_process_group()
+
+
+if __name__ == "__main__":
+    _rank_main(int(sys.argv[1]), sys.argv[2], sys.argv[3])
+    sys.exit(0)
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+import viterbidecodercpp_tpu as vt  # noqa: E402
+from viterbidecodercpp_torch.utils import native  # noqa: E402
+from viterbidecodercpp_tpu import ber as jax_ber  # noqa: E402
+from viterbidecodercpp_tpu.ops import jax_core  # noqa: E402
+from viterbidecodercpp_tpu.utils import native as jax_native  # noqa: E402
+from viterbidecodercpp_tpu.utils import testsig as jax_testsig  # noqa: E402
 
 def _pair(name, mode):
     jc, tc = vt.get_code(name), pt.get_code(name)
@@ -177,3 +229,68 @@ def test_native_is_the_ports_own_build():
     assert lib.vdt_abi_version() == native.ABI_VERSION
     assert native.BUILD_DIR.parent.name == "viterbidecodercpp_torch"
     assert list(native.BUILD_DIR.glob("libvdtsigchain-*.so"))
+
+
+@pytest.fixture(scope="module")
+def dp_fleet(tmp_path_factory):
+    """Each rank's (total_bits, total_bit_errors) of every DP_POINTS
+    point, from one 4-rank gloo fleet."""
+    work = tmp_path_factory.mktemp("ber_fleet")
+    me = os.path.abspath(__file__)
+    launch.spawn_fleet(
+        lambda r, init: [sys.executable, me, str(r), init,
+                         str(work / f"rank{r}.json")], WORLD, timeout=300)
+    outs = []
+    for r in range(WORLD):
+        with open(work / f"rank{r}.json") as f:
+            outs.append(json.load(f))
+    for name in DP_POINTS:           # the totals are global: equal on all
+        assert len({tuple(o[name]) for o in outs}) == 1, name
+    return outs[0]
+
+
+def test_group_point_totals_equal_the_ranks_single_runs(dp_fleet):
+    """A data-parallel point is the sum of the ranks' own points from the
+    same rank generators: bits (world x batch x block a batch) and
+    errors."""
+    code, config, kw = _dp_kw()
+    bits = errors = 0
+    for r in range(WORLD):
+        p = ber.measure_point(
+            code, config, DP_EBNO,
+            generator=ber.rank_generator(DP_SEED, 0, r, "cpu"),
+            max_bits=5 * DP_STEP // WORLD, **kw)
+        bits += p.total_bits
+        errors += p.total_bit_errors
+    assert dp_fleet["five"] == [bits, errors] == [5 * DP_STEP, errors]
+    assert errors > 0
+
+
+def test_group_point_repeats_from_the_same_seeds(dp_fleet):
+    assert dp_fleet["five_again"] == dp_fleet["five"]
+    # another point index draws other streams
+    a = torch.rand(4, generator=ber.rank_generator(1, 0, 2, "cpu"))
+    b = torch.rand(4, generator=ber.rank_generator(1, 0, 3, "cpu"))
+    c = torch.rand(4, generator=ber.rank_generator(1, 1, 2, "cpu"))
+    assert not torch.equal(a, b) and not torch.equal(a, c)
+
+
+def test_group_point_stops_at_the_first_batch_past_max_bits(dp_fleet):
+    # 2.5 batches of the fleet -> 3, as the JAX mesh point stops
+    assert dp_fleet["past"][0] == 3 * DP_STEP
+    assert ber.capped_budgets(1 << 40, 1 << 40, DP_STEP) == \
+        ((1 << 31) - 1 - DP_STEP,) * 2
+
+
+def test_group_point_timeout_on_one_rank_ends_every_rank(dp_fleet):
+    """Rank 0's clock expires (the others have no timeout): every rank
+    ends the point after the first slice of four batches, with the same
+    totals, and none waits in a collective the others left."""
+    assert dp_fleet["timeout"][0] == 4 * DP_STEP
+
+
+def test_group_and_host_chain_are_exclusive():
+    code, config, _ = _dp_kw()
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        ber.sweep(code, config, host_chain=True, group=object(),
+                  max_points=1, device="cpu")

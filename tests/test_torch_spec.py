@@ -98,33 +98,41 @@ def test_public_names_match_the_jax_package():
 def test_port_imports_neither_jax_nor_triton():
     """The card's machine has no jax, and a module that compiled or
     imported triton at import time would break the CPU tests.  Importing
-    the host chain builds nothing either, and both BER tools answer
-    --help without jax."""
+    the host chain builds nothing either, the parallel layer starts no
+    process group, and the BER, punctured-decoder and scaling tools
+    answer --help without jax."""
     code = ("import sys\n"
             "import viterbidecodercpp_torch\n"
             "from viterbidecodercpp_torch.ops import (_build, bigstate,"
             " chainback, encoder, lane, plane, rotated, torch_core)\n"
             "from viterbidecodercpp_torch import ber, puncture, streaming\n"
             "from viterbidecodercpp_torch.utils import native, testsig\n"
+            "from viterbidecodercpp_torch.parallel import (block_sp,"
+            " frame_dp, launch, mesh)\n"
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'triton', 'viterbidecodercpp_tpu')]\n"
             "assert not bad, bad\n"
             "assert not _build.build_seconds\n"
             "assert native.ensure_built.cache_info().currsize == 0\n"
-            "assert 'ber' not in viterbidecodercpp_torch.__all__\n")
+            "assert 'ber' not in viterbidecodercpp_torch.__all__\n"
+            "import torch.distributed as dist\n"
+            "assert not dist.is_initialized()\n")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=root)
     proc = subprocess.run([sys.executable, "-c", code], cwd=root, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
-    for tool in ("torch_run_snr_ber.py", "torch_run_punctured_decoder.py"):
+    # each tool's documented way to run on the CPU
+    for tool, cpu_flag in (("torch_run_snr_ber.py", "--cpu"),
+                           ("torch_run_punctured_decoder.py", "--cpu"),
+                           ("torch_run_scaling.py", "--simulate")):
         # -X importtime lists every module the tool imported
         proc = subprocess.run(
             [sys.executable, "-X", "importtime",
              os.path.join("tools", tool), "--help"],
             cwd=root, env=env, capture_output=True, text=True, timeout=120)
         assert proc.returncode == 0, proc.stderr
-        assert "--cpu" in proc.stdout
+        assert cpu_flag in proc.stdout
         imported = {line.split("|")[-1].strip().split(".")[0]
                     for line in proc.stderr.splitlines()
                     if line.startswith("import time:")}

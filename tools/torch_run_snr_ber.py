@@ -18,12 +18,21 @@ timeout (run_snr_ber.cpp:361-379), -c/-d/-s filters, -l registry list
 mt19937 channel.  ``-s cuda`` decodes with the CUDA kernels (the
 default on the card), ``-s torch`` with the plain scan (the default with
 ``--cpu``); ``simd_type`` records which ran.
+
+``--dp N`` runs every point data-parallel over N ranks spawned here (``-B``
+frames a rank a batch, budgets summed over the ranks; ``ber.py``'s
+``group=``), one rank per card with ``--dist-backend nccl`` (the default
+on cards), or over gloo: ranks that share cards, or CPU ranks with
+``--cpu``:
+
+    python3 tools/torch_run_snr_ber.py -c 2 -d soft8 --dp 4 --dist-backend gloo
 """
 
 import argparse
 import json
 import os
 import sys
+import tempfile
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
     __file__))))
@@ -68,6 +77,16 @@ def main(argv=None):
                          "on the device")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the CPU instead of the card")
+    ap.add_argument("--dp", type=int, default=None, metavar="N",
+                    help="run each point data-parallel over N ranks (-B "
+                         "frames a rank, budgets summed over the ranks)")
+    ap.add_argument("--dist-backend", default=None,
+                    choices=["nccl", "gloo"],
+                    help="--dp's backend: nccl (one rank per card; the "
+                         "default on cards) or gloo (ranks that share a "
+                         "card; CPU ranks, the default with --cpu)")
+    ap.add_argument("--rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--init-method", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
     if args.l:
         print_code_list()
@@ -82,8 +101,21 @@ def main(argv=None):
               "use -s torch", file=sys.stderr)
         return 1
 
+    if args.dist_backend is None:
+        args.dist_backend = "gloo" if args.cpu else "nccl"
+    if args.dp is not None and args.rank is None:
+        return spawn_dp(args, sys.argv[1:] if argv is None else list(argv))
+
     device = "cpu" if args.cpu else "cuda"
     backend = "auto" if args.s == "cuda" else "torch"
+    group = None
+    if args.dp is not None:
+        import torch.distributed as dist
+        from viterbidecodercpp_torch.parallel import launch
+        device = launch.initialize(args.init_method, args.dp, args.rank,
+                                   backend=args.dist_backend, device=device)
+        group = dist.group.WORLD
+    quiet = bool(args.rank)            # ranks past 0 print nothing
     rows = []
     for ci, code in enumerate(pt.COMMON_CODES):
         if args.c is not None and ci != args.c:
@@ -97,8 +129,11 @@ def main(argv=None):
                             block_bits=args.L * 8, batch=args.B,
                             max_errors=args.n, bits_scale=args.k,
                             backend=backend, host_chain=args.host_chain,
-                            timeout_seconds=args.T, device=device)
+                            timeout_seconds=args.T, device=device,
+                            group=group)
             for i, p in enumerate(res.points):
+                if quiet:
+                    continue
                 print(f"name='{code.name}',K={code.K},R={code.R},"
                       f"decode={dt.value},iter={i},EbNo_dB={p.EbNo_dB:.1f},"
                       f"BER={p.ber:.3e}", file=sys.stderr)
@@ -115,12 +150,54 @@ def main(argv=None):
                 "total_bits": [p.total_bits for p in res.points],
                 "total_bit_errors": [p.total_bit_errors for p in res.points],
             })
+    if group is not None:
+        dist.destroy_process_group()
+    if quiet:
+        return 0
     out = json.dumps(rows, indent=1)
     if args.o:
         with open(args.o, "w") as f:
             f.write(out)
     else:
         print(out)
+    return 0
+
+
+def spawn_dp(args, argv) -> int:
+    """Run this tool as ``args.dp`` ranks here; rank 0 writes the JSON
+    (to ``-o``, else to a file that is printed) and its progress lines."""
+    import torch
+    from viterbidecodercpp_torch.parallel import launch
+
+    if args.host_chain:
+        print("--dp and --host-chain are mutually exclusive: the host chain "
+              "generates the channel on one process's CPU", file=sys.stderr)
+        return 1
+    if args.dist_backend == "nccl":
+        cards = 0 if args.cpu else torch.cuda.device_count()
+        if args.dp > cards:
+            print(f"--dist-backend nccl runs one rank per card: {args.dp} "
+                  f"ranks, {cards} card(s); use --dist-backend gloo for CPU "
+                  f"ranks or ranks that share a card", file=sys.stderr)
+            return 1
+    with tempfile.TemporaryDirectory() as tmp:
+        out = args.o or os.path.join(tmp, "ber.json")
+        rest = list(argv)
+        if args.o is None:
+            rest += ["-o", out]
+        me = os.path.abspath(__file__)
+        try:
+            outs = launch.spawn_fleet(
+                lambda r, init: [sys.executable, me, *rest, "--rank", str(r),
+                                 "--init-method", init],
+                args.dp, timeout=24 * 3600)
+        except RuntimeError as exc:
+            print(f"data-parallel sweep failed: {exc}", file=sys.stderr)
+            return 1
+        print(outs[0], end="", file=sys.stderr)
+        if args.o is None:
+            with open(out) as f:
+                print(f.read())
     return 0
 
 

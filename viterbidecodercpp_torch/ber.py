@@ -1,5 +1,5 @@
 """BER measurement on the device (the run_snr_ber engine; the port of the
-JAX package's ``ber.py`` without its ``mesh=`` path).
+JAX package's ``ber.py``).
 
 The reference measures BER with a host loop: generate a block, encode,
 add noise, decode, count errors, repeat until a bit budget or an error
@@ -9,6 +9,13 @@ and counted on the device (``utils/testsig.py`` and
 :class:`~viterbidecodercpp_torch.decoder.ViterbiDecoder`, whose routing
 picks the rotated, lane or plane kernels); the host reads one error
 count a batch to apply the stopping rule.
+
+With ``group=`` (a ``torch.distributed`` process group) a point runs
+data-parallel, the port of the JAX ``mesh=`` path: every rank draws
+``batch`` frames a batch from its own generator (:func:`rank_generator`),
+and one ``all_reduce(SUM)`` a batch carries the batch's errors and the
+timeout flag, so every rank takes the same number of batches and the
+budgets are global (a batch is world x batch x block_bits bits).
 
 Stopping semantics are the JAX package's, which mirror get_test_range /
 run_test (run_snr_ber.cpp:220-233, 318-396): per point, run batches while
@@ -34,15 +41,18 @@ from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .codes import CodeSpec
 from .config import DecoderConfig
-from .decoder import ViterbiDecoder
+from .decoder import ViterbiDecoder, resolve_device
+from .parallel.mesh import all_reduce
 from .utils import testsig
 
 __all__ = ["BerPoint", "SweepResult", "default_max_bits", "measure_point",
            "measure_point_host_chain", "sweep", "point_generator",
-           "capped_budgets", "draw_batch", "decode_errors"]
+           "rank_generator", "capped_budgets", "draw_batch",
+           "decode_errors"]
 
 
 @dataclasses.dataclass
@@ -73,36 +83,36 @@ def default_max_bits(code: CodeSpec, scale: float = 1.0) -> int:
     return int(math.ceil(scale * (1e9 / runtime_scale)))
 
 
-def _device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: pass device='cpu' to measure "
-                               "on the CPU")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {dev}")
-    return dev
+def _seeded(entropy, device) -> torch.Generator:
+    words = np.random.SeedSequence([int(x) for x in entropy]).generate_state(
+        2, np.uint32)
+    g = torch.Generator(device=resolve_device(device))
+    g.manual_seed(int(words[0]) << 32 | int(words[1]))
+    return g
 
 
 def point_generator(seed: int, index: int, device="cuda") -> torch.Generator:
     """The generator of point ``index`` of a sweep seeded ``seed``: its
     own stream, so a point does not depend on how many batches the
     points before it drew."""
-    words = np.random.SeedSequence([int(seed), int(index)]).generate_state(
-        2, np.uint32)
-    g = torch.Generator(device=_device(device))
-    g.manual_seed(int(words[0]) << 32 | int(words[1]))
-    return g
+    return _seeded((seed, index), device)
+
+
+def rank_generator(seed: int, index: int, rank: int,
+                   device="cuda") -> torch.Generator:
+    """The generator of rank ``rank`` at point ``index`` of a
+    data-parallel sweep seeded ``seed``: one stream a (point, rank), from
+    ``SeedSequence([seed, index, rank])``."""
+    return _seeded((seed, index, rank), device)
 
 
 def capped_budgets(max_bits: int, max_errors: int, step: int
                    ) -> Tuple[int, int]:
     """The JAX package's int32 cap on both budgets: its device counters
-    are int32, so the thresholds stay one batch of ``step`` bits below
-    INT32_MAX, and the totals (multiples of ``step``) are the same for
-    the same budgets."""
+    are int32, so the thresholds stay one batch of ``step`` bits (all
+    ranks' frames, world x batch x block_bits, on a data-parallel point)
+    below INT32_MAX, and the totals (multiples of ``step``) are the same
+    for the same budgets."""
     cap = (1 << 31) - 1 - step
     return min(int(max_bits), cap), min(int(max_errors), cap)
 
@@ -136,7 +146,7 @@ def measure_point(code: CodeSpec, config: DecoderConfig, EbNo_dB: float, *,
                   batch: int = 256, max_bits: int, max_errors: int = 10_000,
                   backend: str = "auto",
                   timeout_seconds: Optional[float] = None,
-                  device="cuda") -> BerPoint:
+                  device="cuda", group=None) -> BerPoint:
     """Measure one (code, config, Eb/No) BER point on ``device``.
 
     Each batch draws ``batch`` frames of ``block_bits`` data bits from
@@ -148,36 +158,65 @@ def measure_point(code: CodeSpec, config: DecoderConfig, EbNo_dB: float, *,
     ``timeout_seconds`` adds the reference's third per-point stopping
     rule (run_snr_ber.cpp:361-379): the point also ends when its wall
     clock expires, read between slices of four batches.
+
+    ``group``: run the point data-parallel over the group's ranks (every
+    rank calls it with its own ``generator``, e.g. :func:`rank_generator`;
+    ``batch`` frames a rank).  Each batch's errors are summed over the
+    ranks in one ``all_reduce``, which also carries the timeout flag (any
+    rank's clock ends the point on every rank: the ranks must agree on
+    the stop, or one would wait forever in a collective the others left).
+    The budgets and the returned totals are global.
     """
-    dev = _device(device)
+    dev = resolve_device(device)
     if generator.device != dev:
         raise ValueError(f"the generator lies on {generator.device}, the "
                          f"point runs on {dev}")
     dec = ViterbiDecoder(code, config, traceback_length=block_bits,
                          backend=backend, device=dev)
-    step = batch * block_bits
+    world = 1
+    if group is not None:
+        world = dist.get_world_size(group)
+    step = world * batch * block_bits
     max_bits, max_errors = capped_budgets(max_bits, max_errors, step)
+    t0 = time.perf_counter()
 
-    def run(stop_bits: int, bits: int, errors: int) -> Tuple[int, int]:
+    def expired() -> bool:
+        return (timeout_seconds is not None
+                and time.perf_counter() - t0 > timeout_seconds)
+
+    def run(stop_bits: int, bits: int, errors: int) -> Tuple[int, int, bool]:
         # the JAX while_loop's cond and body, one host read a batch
-        while bits < stop_bits and errors < max_errors:
+        fired = False
+        # a fired flag ends the point on every rank, whichever rank's
+        # clock (or none, without a timeout of its own) set it
+        while bits < stop_bits and errors < max_errors and not fired:
             syms, tx = draw_batch(code, config, EbNo_dB, generator, batch,
                                   block_bits)
-            errors += int(decode_errors(dec, syms, tx))
+            e = decode_errors(dec, syms, tx)
+            if group is None:
+                errors += int(e)
+            else:
+                flag = int(bits + step >= stop_bits and expired())
+                e, fired = all_reduce(torch.stack(
+                    [e.to(torch.int64),
+                     torch.full((), flag, dtype=torch.int64, device=dev)]),
+                    group).tolist()
+                errors += e
+                fired = fired > 0
             bits += step
-        return bits, errors
+        if group is None:
+            fired = expired()
+        return bits, errors, fired
 
     if timeout_seconds is None:
-        bits_done, errors = run(max_bits, 0, 0)
+        bits_done, errors, _ = run(max_bits, 0, 0)
     else:
-        t0 = time.perf_counter()
         slice_bits = 4 * step
         bits_done = errors = 0
         while True:
-            bits_done, errors = run(min(max_bits, bits_done + slice_bits),
-                                    bits_done, errors)
-            if (bits_done >= max_bits or errors >= max_errors
-                    or time.perf_counter() - t0 > timeout_seconds):
+            bits_done, errors, fired = run(
+                min(max_bits, bits_done + slice_bits), bits_done, errors)
+            if bits_done >= max_bits or errors >= max_errors or fired:
                 break
     return BerPoint(EbNo_dB=float(EbNo_dB),
                     ber=errors / bits_done if bits_done else 0.0,
@@ -199,7 +238,7 @@ def measure_point_host_chain(code: CodeSpec, config: DecoderConfig,
     package's function (the decoders are bit-exact)."""
     from .utils import native
 
-    dev = _device(device)
+    dev = resolve_device(device)
     enc = native.NativeEncoder(code.K, code.G)
     dec = ViterbiDecoder(code, config, traceback_length=block_bits,
                          backend=backend, device=dev)
@@ -235,15 +274,22 @@ def sweep(code: CodeSpec, config: DecoderConfig, *, seed: int = 0,
           bits_scale: float = 1.0, backend: str = "auto",
           host_chain: bool = False,
           timeout_seconds: Optional[float] = None,
-          device="cuda") -> SweepResult:
+          device="cuda", group=None) -> SweepResult:
     """Eb/No sweep, stopping at the first zero-error point
     (run_snr_ber.cpp:318-396).  Point i draws from
     ``point_generator(seed, i, device)``; ``host_chain`` generates the
     channel on the native C++ runtime instead (seed ``seed + i``, as the
     JAX package does); ``timeout_seconds`` bounds each point's wall clock
-    (the -T stopping rule)."""
+    (the -T stopping rule); ``group`` runs every point data-parallel over
+    the group's ranks (see :func:`measure_point`), rank r of the group
+    drawing point i from ``rank_generator(seed, i, r, device)``."""
+    device = resolve_device(device)
     if max_bits is None:
         max_bits = default_max_bits(code, bits_scale)
+    if group is not None and host_chain:
+        raise ValueError("group (data-parallel points) and host_chain are "
+                         "mutually exclusive: the host chain generates "
+                         "the channel on this process's CPU")
     points = []
     for i in range(max_points):
         EbNo = EbNo_start + i * EbNo_step
@@ -254,12 +300,14 @@ def sweep(code: CodeSpec, config: DecoderConfig, *, seed: int = 0,
                 timeout_seconds=timeout_seconds, backend=backend,
                 device=device)
         else:
-            p = measure_point(code, config, EbNo,
-                              generator=point_generator(seed, i, device),
+            gen = (point_generator(seed, i, device) if group is None else
+                   rank_generator(seed, i, dist.get_rank(group), device))
+            p = measure_point(code, config, EbNo, generator=gen,
                               block_bits=block_bits, batch=batch,
                               max_bits=max_bits, max_errors=max_errors,
                               backend=backend,
-                              timeout_seconds=timeout_seconds, device=device)
+                              timeout_seconds=timeout_seconds, device=device,
+                              group=group)
         points.append(p)
         if p.total_bit_errors == 0:
             break

@@ -43,7 +43,8 @@ from .config import DecoderConfig, DecodeType, get_decode_config
 from .ops import bigstate, lane, plane, rotated, torch_core
 from .ops import chainback as chainback_ops
 
-__all__ = ["DecoderState", "ViterbiDecoder", "select_backend"]
+__all__ = ["DecoderState", "ViterbiDecoder", "select_backend",
+           "resolve_device"]
 
 _FIELDS = ("metrics", "decisions", "accumulated_error", "bit_cursor",
            "row_rots")
@@ -113,6 +114,22 @@ class DecoderState:
 
 
 BACKENDS = ("rotated", "plane", "lane", "torch")
+
+
+def resolve_device(device) -> torch.device:
+    """``device`` as a torch.device with its card index; raises without a
+    card (no fallback to the CPU) and for a device other than a card or
+    the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError("no CUDA device: pass device='cpu' to run on "
+                               "the CPU")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    return dev
 
 
 def select_backend(spec: torch_core.StaticSpec, device: torch.device,
