@@ -117,12 +117,29 @@ Phases, in order; any failure raises and exits non-zero:
    past ``total_rows`` on the three routes (bits and mismatch count).  It
    prints each rank's tile and exchange time (CUDA events), the whole
    call (host clock) and the single-process decode's time.
+7. The harness on the card, in this process (each tool's function, no
+   subprocess): ``tools/torch_run_tests.py``'s matrix (3 regimes x the 8
+   registry codes x 2 arithmetic modes x the kernel route and the plain
+   scan; 0 failures and exactly the reference's one skip),
+   ``torch_run_simple.py`` (DAB Radio, 0 bit errors),
+   ``torch_run_streaming.py`` for Voyager (rotated route) and Cassini
+   (plane route), 0 bit errors,
+   ``torch_ber_truncated_delta.py`` at 2^18 bits (its BER delta printed;
+   its first batch's plane ACS, exact and truncated walk at B=64 x 1040
+   rows, block 512, overlap 160, equal to their plain versions),
+   and ``FUZZ_CASES`` fixed seeded cases of ``torch_fuzz_differential.py``
+   against ``ops/numpy_ref.py`` on both routes: 0 mismatches, and every
+   category of its ``REQUIRED`` reached (rotated warp and block, K=12/13
+   block, tiled and chain walks, lane, plane K=14..16 and the K=17
+   cluster, the truncated walk, the puncture and checkpoint arms).  All
+   six kernels must have launched; their counts join the kernels line.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is a JSON object with one entry per kernel (launches on the main paths,
 largest difference from the plain version, ms, plain_ms, bound_ms,
 bound_by, bound_share, library_ms), the decode and stream times and the
-BER loop's, and phase 6's results and times.  Imports nothing of JAX.
+BER loop's, phase 6's results and times and phase 7's counts and
+seconds.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -1388,6 +1405,95 @@ def phase6(pt, dev, card: str, launches: dict, err: dict, seed: int,
     return out
 
 
+# -- phase 7: the harness on the card ----------------------------------------
+# The fuzzer's fixed cases, seeds 0 .. FUZZ_CASES - 1: deterministic, and
+# they reach every category of torch_fuzz_differential.REQUIRED (K=12/13
+# rotated block and the K=17 cluster among them).
+FUZZ_CASES = 500
+# the truncated-walk delta: Cassini SOFT16 at 0.5 dB, 4 batches of 64
+# frames x 1024 bits, tiles of 512 rows with 160 rows of warm-up; the
+# first batch's plane ACS, exact and truncated walk held to their plain
+# versions (tolerance 0)
+TRUNC_DELTA = {"bits": 1 << 18, "batch": 64, "block_bits": 1024}
+
+
+def phase7(dev, launches: dict, card: str) -> dict:
+    """The port's harness tools, in this process, through the kernels:
+    the run_tests matrix on both routes, run_simple, the Voyager and
+    Cassini streams, the truncated-walk BER delta and FUZZ_CASES seeded
+    fuzz cases against numpy_ref.  A failure raises; every kernel must
+    have launched.  Returns the JSON line's ``harness`` entry."""
+    from tools import (torch_ber_truncated_delta, torch_fuzz_differential,
+                       torch_run_simple, torch_run_streaming, torch_run_tests)
+    reset_counts()
+    seconds = {}
+    t0 = time.perf_counter()
+    m = torch_run_tests.run_matrix(dev)
+    seconds["run_tests"] = time.perf_counter() - t0
+    require(not m["failures"], f"torch_run_tests failed: {m['failures']}")
+    require(m["skipped"] == 1 and m["passed"] == m["total"] - 1,
+            f"torch_run_tests: {m['passed']}/{m['total']} passed, "
+            f"{m['skipped']} skipped")
+    require(set(m["routes"]) == {"rotated", "plane", "lane", "torch"},
+            f"torch_run_tests took the routes {m['routes']}")
+    print(f"phase7 run_tests: {m['passed']}/{m['total'] - m['skipped']} "
+          f"passed, {m['skipped']} skipped, routes {m['routes']} "
+          f"({seconds['run_tests']:.2f} s)", flush=True)
+    t = time.perf_counter()
+    r = torch_run_simple.run(dev)
+    require(r["bit_errors"] == 0 and r["backend"] == "rotated",
+            f"torch_run_simple: {r['bit_errors']} bit errors on the "
+            f"{r['backend']} route")
+    streams = {}
+    for name, route in (("voyager", "rotated"), ("cassini", "plane")):
+        s = torch_run_streaming.run(name, dev)
+        require(s["bit_errors"] == 0 and s["backend"] == route,
+                f"torch_run_streaming {name}: {s['bit_errors']} bit errors "
+                f"on the {s['backend']} route")
+        streams[name] = s["bit_errors"]
+    seconds["simple_and_streams"] = time.perf_counter() - t
+    print(f"phase7 run_simple: DAB Radio SOFT16 1024 bytes, "
+          f"{r['bit_errors']} bit errors, final metric {r['final_error']}; "
+          f"run_streaming voyager (rotated) and cassini (plane): "
+          f"{streams} bit errors ({seconds['simple_and_streams']:.2f} s)",
+          flush=True)
+    t = time.perf_counter()
+    d = torch_ber_truncated_delta.measure(dev, **TRUNC_DELTA)
+    seconds["truncated_delta"] = time.perf_counter() - t
+    bad = torch_ber_truncated_delta.verdict(d)
+    require(not bad, f"truncated delta: {bad}")
+    print(f"phase7 truncated delta: {d['code']} SOFT16 0.5 dB, {d['bits']} "
+          f"bits, block 512 overlap 160: BER exact {d['ber_exact']:.6e} "
+          f"({d['errors_exact']}), truncated {d['ber_truncated']:.6e} "
+          f"({d['errors_truncated']}), delta "
+          f"{d['ber_truncated'] - d['ber_exact']:+.3e}, disagreement "
+          f"{d['disagreement']:.3e} ({d['disagree']} bits); the first "
+          f"batch's plane ACS, exact and truncated walk equal to their "
+          f"plain versions "
+          f"({seconds['truncated_delta']:.2f} s)", flush=True)
+    f = torch_fuzz_differential.run(FUZZ_CASES, 0, dev)
+    seconds["fuzz"] = f["seconds"]
+    missing = [c for c in torch_fuzz_differential.REQUIRED
+               if not f["counts"].get(c)]
+    require(not missing, f"the fuzz cases did not reach {missing}")
+    print(f"phase7 fuzz: {f['cases']} seeded cases, 0 mismatches against "
+          f"numpy_ref in {f['seconds']:.2f} s "
+          f"({f['cases'] / f['seconds']:.2f} cases/s); {f['counts']}",
+          flush=True)
+    torch.cuda.synchronize()
+    counts = read_counts()
+    add_counts(launches, counts, KERNELS, "phase 7 (the harness)")
+    seconds["total"] = time.perf_counter() - t0
+    print(f"phase7 ok: the harness on the card in {seconds['total']:.2f} s; "
+          f"launches {counts} on {card}", flush=True)
+    return {"run_tests": {k: m[k] for k in ("total", "passed", "skipped")},
+            "stream_bit_errors": streams,
+            "truncated_delta": {k: d[k] for k in (
+                "bits", "errors_exact", "errors_truncated", "disagree")},
+            "fuzz": {"cases": f["cases"], "counts": f["counts"]},
+            "seconds": seconds}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1694,6 +1800,9 @@ def main() -> None:
     # -- phase 6: the parallel layer -----------------------------------------
     parallel = phase6(pt, dev, card, launches, err, args.seed)
 
+    # -- phase 7: the harness on the card ------------------------------------
+    harness = phase7(dev, launches, card)
+
     print(card, flush=True)
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": tpu,
@@ -1711,7 +1820,7 @@ def main() -> None:
         "lane_decoded_symbols_per_s": rate_l,
         "streams": stream_times, "ber_loop": ber_loop,
         "ber_points": {k: ber_points[k] for k in ("bits", "seconds")},
-        "parallel": parallel}),
+        "parallel": parallel, "harness": harness}),
         flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -104,7 +104,8 @@ def test_port_imports_neither_jax_nor_triton():
     code = ("import sys\n"
             "import viterbidecodercpp_torch\n"
             "from viterbidecodercpp_torch.ops import (_build, bigstate,"
-            " chainback, encoder, lane, plane, rotated, torch_core)\n"
+            " chainback, encoder, lane, numpy_ref, plane, rotated,"
+            " torch_core)\n"
             "from viterbidecodercpp_torch import ber, puncture, streaming\n"
             "from viterbidecodercpp_torch.utils import native, testsig\n"
             "from viterbidecodercpp_torch.parallel import (block_sp,"
@@ -139,3 +140,55 @@ def test_port_imports_neither_jax_nor_triton():
         assert "viterbidecodercpp_torch" in imported
         assert not imported & {"jax", "jaxlib", "triton",
                                "viterbidecodercpp_tpu"}, (tool, imported)
+
+
+HARNESS_TOOLS = ("torch_run_simple.py", "torch_run_tests.py",
+                 "torch_run_streaming.py", "torch_ber_truncated_delta.py",
+                 "torch_fuzz_differential.py")
+# One child a tool, with jax blocked from import: import the oracle, then
+# run the tool as a script with --help and with no argument, and report
+# each run's exit code (SystemExit's code) and standard output.
+_BLOCKED = """
+import contextlib, io, json, runpy, sys
+sys.modules['jax'] = None
+sys.modules['jaxlib'] = None
+import viterbidecodercpp_torch.ops.numpy_ref
+path, runs = sys.argv[1], []
+for argv in (['--help'], []):
+    sys.argv = [path] + argv
+    out = io.StringIO()
+    try:
+        with contextlib.redirect_stdout(out):
+            runpy.run_path(path, run_name='__main__')
+        code = 0
+    except SystemExit as exc:
+        code = exc.code
+    runs.append([code, out.getvalue()])
+bad = [m for m, mod in sys.modules.items() if mod is not None
+       and m.split('.')[0] in ('jax', 'jaxlib', 'viterbidecodercpp_tpu')]
+print(json.dumps({'runs': runs, 'bad': bad}))
+"""
+
+
+@pytest.mark.parametrize("tool", HARNESS_TOOLS)
+def test_harness_tools_run_without_jax_and_refuse_without_a_card(tool):
+    """With jax blocked from import, the oracle imports and each harness
+    tool answers --help; without --cpu on a machine with no card the tool
+    exits with a message naming the card (SystemExit with a message:
+    status 1, the message on stderr) before it prints or decodes
+    anything."""
+    import json
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=root, CUDA_VISIBLE_DEVICES="")
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKED, os.path.join("tools", tool)],
+        cwd=root, env=env, capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    report = json.loads(proc.stdout.splitlines()[-1])
+    assert report["bad"] == []
+    (help_code, help_out), (code, out) = report["runs"]
+    assert help_code == 0 and "--cpu" in help_out
+    assert isinstance(code, str) and "no CUDA card" in code, code
+    assert "--cpu" in code
+    assert out == ""
