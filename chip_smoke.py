@@ -6,7 +6,7 @@
 Phases, in order; any failure raises and exits non-zero:
 
 1. Device: requires ``torch.cuda.is_available()``, prints the card's
-   name and power limit (nvidia-smi), builds all six CUDA kernels from
+   name and power limit (nvidia-smi), builds all seven CUDA kernels from
    ``viterbidecodercpp_torch/csrc`` with nvcc for sm_90a, one nvcc
    process per source, and the native host chain (``native/sigchain.cpp``)
    with g++, all started together (into ``viterbidecodercpp_torch/_build/``),
@@ -42,6 +42,14 @@ Phases, in order; any failure raises and exits non-zero:
    outside it untouched), from off-reset metrics, symbols past the soft
    range, and from entry metrics near metric_max (the renorm vote fires);
    on the B=100 rows the state-order walk kernel.
+2d. The plane ACS past K=17: random K=18 and K=19 codes (clusters of
+   four and eight blocks; cudaOccupancyMaxActiveClusters printed) and
+   K=20 and K=21 codes (the global-metric kernel), at R=2 and R=6, both
+   arithmetic modes, at (B, T) = (1, 1) from the reset metrics, (1, n-1)
+   from random metrics near metric_max and (3, 2n+3) from both, at
+   phase0 != 0, the B=3 calls into an ``out`` buffer at ``row0=2``
+   (metrics, words, acc, the whole buffer); on the B=3 rows the exact
+   and the truncated walk.
 3. The flagship path at full size: Voyager K=7 R=1/2 SOFT8, B=1024
    frames x 2048 trellis steps (2042 random data bits + 6 tail bits per
    frame), encoded on the card, mild numpy noise, decoded by
@@ -67,6 +75,15 @@ Phases, in order; any failure raises and exits non-zero:
    (bits, valid, final metrics, ring) and have launched its kernels.  Then
    Voyager on an AWGN channel (utils/testsig.py): the bit-error delta of
    windows 64, 128 and 256 against the exact decode of the same symbols.
+3e. K >= 18 at full width: a K=18 R=1/2 SOFT16 code, B=64 x 2048
+   noise-free data bits (a 2.2 GB decision buffer), through
+   ``ViterbiDecoder.decode`` on the cluster of four blocks: every frame
+   equal to its data, the first 8 frames' bits, get_error and acc equal
+   to the plain versions on the card, and the ACS kernel's metrics,
+   words and acc on them equal to plain; the same stream through
+   ``StreamingDecoder`` (window 288, chunk 32) equal to the data; K=20
+   and K=21 decodes of B=4 x 512 bits on the global-metric kernel, equal
+   to the data and to the plain versions.
 4. Times on the card (CUDA events, warm-up, median): each kernel and its
    plain version at its path's full-size shape beside its bound (the
    larger of its bytes over the HBM rate and its int32 operations over
@@ -75,6 +92,10 @@ Phases, in order; any failure raises and exits non-zero:
    each whole decode in decoded symbols/s (B*T*R / s), and each stream's
    median ms per push (of 41: a push is host-bound) and streamed
    symbols/s (B*chunk*R / s).
+4e. The two plane ACS routes past K=17 beside their bounds: the cluster
+   kernel at K=18 (B=64 x 2065 steps) and K=19 (B=16 x 530), the
+   global-metric kernel at K=20 and K=21 (B=4 x 531 and 532), kernel and
+   plain time, time a trellis step, bound and share.
 4d. The BER loop's times (``ber.measure_point``): Voyager SOFT8, 2048-bit
    blocks, 6 dB (no error stop fires), 256 batches of 256 frames and 64
    of 1024: decoded data bits/s (median of three points, host clock),
@@ -131,11 +152,18 @@ Phases, in order; any failure raises and exits non-zero:
    against ``ops/numpy_ref.py`` on both routes: 0 mismatches, and every
    category of its ``REQUIRED`` reached (rotated warp and block, K=12/13
    block, tiled and chain walks, lane, plane K=14..16 and the K=17
-   cluster, the truncated walk, the puncture and checkpoint arms).  All
-   six kernels must have launched; their counts join the kernels line.
+   cluster, K >= 18, the truncated walk, the puncture and checkpoint
+   arms); ``torch_run_benchmark.py`` on the kernel routes (Voyager SOFT8
+   B=1024, Cassini SOFT16 B=512, the K=18 code B=64; -T 0.5), its rows
+   read by the unmodified ``parse_benchmark.py`` and
+   ``compare_benchmark.py`` in subprocesses (exit 0), and
+   ``torch_profile_trace.py voyager`` (8 decodes; top device operations,
+   idle share).  All seven kernels must
+   have launched; their counts join the kernels line.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
-is a JSON object with one entry per kernel (launches on the main paths,
+is a JSON object with one entry per kernel (kernel launches on the main
+paths: the global plane ACS launches T + 2 a call, the others one;
 largest difference from the plain version, ms, plain_ms, bound_ms,
 bound_by, bound_share, library_ms), the decode and stream times and the
 BER loop's, phase 6's results and times and phase 7's counts and
@@ -170,6 +198,8 @@ KERNELS = {
                   "viterbidecodercpp_tpu/ops/chainback_pallas.py:60"),
     "plane_acs": ("viterbidecodercpp_torch/csrc/plane_acs.cu",
                   "viterbidecodercpp_tpu/ops/bigstate_pallas.py:119"),
+    "plane_acs_global": ("viterbidecodercpp_torch/csrc/plane_acs_global.cu",
+                         "viterbidecodercpp_tpu/ops/bigstate_pallas.py:119"),
     "plane_walk": ("viterbidecodercpp_torch/csrc/plane_walk.cu",
                    "viterbidecodercpp_tpu/ops/bigstate_pallas.py:535"),
     "plane_walk_trunc": ("viterbidecodercpp_torch/csrc/plane_walk_trunc.cu",
@@ -205,6 +235,25 @@ PLANE_RANDOM = ((14, 2, "SOFT8", "saturating"),
                 (15, 8, "SOFT16", "wrapping"),
                 (14, 11, "HARD8", "saturating"),
                 (17, 6, "SOFT16", "saturating"))
+# phase 2d's codes past K=17: the cluster kernel's 4 and 8 blocks (K=18,
+# 19) and the global-metric kernel (K=20, 21), at R=2 and Cassini's R=6
+BIG_PLANE_K = (18, 19, 20, 21)
+BIG_PLANE_R = (2, 6)
+# each spec's calls: (B, T as an index into (1, n-1, 2n+3), start)
+BIG_PLANE_CALLS = ((1, 0, "reset"), (1, 1, "near max"), (3, 2, "reset"),
+                   (3, 2, "near max"))
+# phase 3e: K >= 18 at full width.  The K=18 code (taps set at both
+# ends), SOFT16, B=64 x 2048 data bits (the cluster of four blocks; the
+# first frames held to the plain versions), its stream, and the wider
+# codes K=20 and K=21 at B=4 x 512 bits (the global-metric kernel)
+BIG_TAPS = (0o12345, 0o7651)
+K18_B, K18_BITS, K18_PLAIN_FRAMES = 64, 2048, 8
+K18_WINDOW, K18_CHUNK = 288, 32
+WIDE_K, WIDE_B, WIDE_BITS = (20, 21), 4, 512
+# phase 4e's shapes: (K, B, data bits); K=19 at 16 frames, two waves of
+# its cudaOccupancyMaxActiveClusters
+BIG_TIMES = ((18, K18_B, K18_BITS), (19, 16, 512), (20, WIDE_B, WIDE_BITS),
+             (21, WIDE_B, WIDE_BITS))
 SWEEP_EBNO_DB = 3.0
 SWEEP_WINDOWS = (64, 128, 256)
 SWEEP_CHUNK = 32
@@ -528,6 +577,107 @@ def phase2b(pt, torch_core, plane, dev, rng) -> dict:
     return err
 
 
+def phase2d(pt, torch_core, plane, dev, rng) -> dict:
+    """The plane ACS past K=17 against its plain version, tolerance 0:
+    K = 18..21 (clusters of 4 and 8 blocks, then global metrics) x R in
+    BIG_PLANE_R x both arithmetic modes, each at BIG_PLANE_CALLS ((B, T)
+    with B in {1, 3}, T in {1, n-1, 2n+3}, from the reset metrics or from
+    random metrics near metric_max: the renorm gate fires from the first
+    step, and the frame minimum lies in any block), at phase0 != 0, the B=3
+    calls into an ``out`` buffer at ``row0=2``; on the last call's rows
+    (B=3, T=2n+3) both walks.  Returns the largest difference seen per
+    kernel."""
+    err = {"plane_acs": 0, "plane_acs_global": 0, "plane_walk": 0,
+           "plane_walk_trunc": 0}
+    calls = 0
+    t0 = time.perf_counter()
+    for K in BIG_PLANE_K:
+        n = K - 1
+        for R in BIG_PLANE_R:
+            code = random_code(pt, K, rng, R)
+            for j, arith in enumerate(ARITHS):
+                mode = MODES[(K + R + j) % len(MODES)]
+                spec = torch_core.make_static_spec(
+                    code, pt.get_decode_config(pt.DecodeType(mode), R,
+                                               arith=arith))
+                kernel = plane.acs_kernel(spec)
+                label = f"K={K} R={R} {mode} {arith} ({kernel})"
+                for Bs, Tn, start in BIG_PLANE_CALLS:
+                    Ts = (1, n - 1, 2 * n + 3)[Tn]
+                    syms = torch.as_tensor(rng.randint(
+                        spec.soft_low - 2, spec.soft_high + 3,
+                        (Bs, Ts, R)).astype(np.int32), device=dev)
+                    if start == "reset":
+                        m0 = torch_core.initial_metrics(spec, Bs, 0, dev)
+                    else:
+                        m0 = torch.as_tensor(
+                            spec.metric_max - rng.randint(
+                                0, 4 * spec.max_error + 1,
+                                (spec.S, Bs)), dtype=torch.int32,
+                            device=dev)
+                    phase0 = (Ts + j + 1) % n
+                    kw = {}
+                    if Bs == 3:
+                        kw = {"row0": 2, "out": torch.full(
+                            (Bs, Ts + 5, spec.W // 128, 128), -7,
+                            dtype=torch.int32, device=dev)}
+                    got = plane.acs_plane(spec, m0, syms,
+                                          phase0=phase0, **kw)
+                    torch.cuda.synchronize()
+                    bufs = []
+                    if kw:
+                        # the whole buffers: rows outside the call
+                        # stay untouched
+                        bufs = [kw["out"]]
+                        kw["out"] = torch.full_like(kw["out"], -7)
+                        bufs.append(kw["out"])
+                    want = plane.acs_plane_ref(spec, m0, syms,
+                                               phase0=phase0, **kw)
+                    e = max(max_abs_diff(g, w) for g, w in
+                            zip((*got, *bufs[:1]),
+                                (*want, *bufs[1:])))
+                    err[kernel] = max(err[kernel], e)
+                    calls += 1
+                    require(e == 0, f"plane ACS kernel != plain for "
+                                    f"{label} from {start} B={Bs} "
+                                    f"T={Ts} phase0={phase0}")
+                # both walks over the last call's rows (B=3, T=2n+3)
+                rows = got[1].contiguous()
+                T = rows.shape[1]
+                st = torch.as_tensor(rng.randint(0, spec.S, 3)
+                                     .astype(np.int32), device=dev)
+                rots = torch.as_tensor(rng.randint(0, n, T)
+                                       .astype(np.int32), device=dev)
+                valid = torch.as_tensor((rng.rand(T) > 0.2)
+                                        .astype(np.int32), device=dev)
+                for wkw in ({"rots": rots, "valid": valid}, {}):
+                    w = plane.walk_plane_frames(spec, rows, st, **wkw)
+                    torch.cuda.synchronize()
+                    e = max_abs_diff(w, plane.walk_plane_frames_ref(
+                        spec, rows, st, **wkw))
+                    err["plane_walk"] = max(err["plane_walk"], e)
+                    require(e == 0, f"plane walk kernel != plain for {label}")
+                for blk, ov in ((16, 8), (8, 24)):
+                    tr = plane.chainback_plane_truncated(spec, rows, st,
+                                                         T - n, rots, blk, ov)
+                    torch.cuda.synchronize()
+                    e = max_abs_diff(tr, plane.chainback_plane_truncated_ref(
+                        spec, rows, st, T - n, rots, blk, ov))
+                    err["plane_walk_trunc"] = max(err["plane_walk_trunc"], e)
+                    require(e == 0, f"truncated walk kernel != plain for "
+                                    f"{label} block={blk} overlap={ov}")
+    print(f"phase2d ok: the plane ACS past K=17, {calls} calls (K in "
+          f"{BIG_PLANE_K}, R in {BIG_PLANE_R}, saturating and wrapping, "
+          f"(B, T, start) in B=1 T=1 reset, B=1 T=n-1 near metric_max, B=3 "
+          f"T=2n+3 from both, phase0 != 0, B=3 into out[:, 2:2+T]) == plain "
+          f"bit-for-bit (metrics, words, acc); clusters of 4 and 8 blocks "
+          f"(K=18, 19: cudaOccupancyMaxActiveClusters "
+          f"{sorted(set(plane.ACTIVE_CLUSTERS.items()))}) and the "
+          f"global-metric kernel (K=20, 21); both walks over the B=3 rows "
+          f"== plain ({time.perf_counter() - t0:.1f} s)", flush=True)
+    return err
+
+
 def reset_counts() -> None:
     from viterbidecodercpp_torch.ops import chainback, lane, plane, rotated
     rotated.LAUNCHES = chainback.LAUNCHES = lane.LAUNCHES = 0
@@ -812,6 +962,181 @@ def phase3d(pt, dev, rng, launches: dict, seed: int) -> list:
                  f"{eb - e_body:+d})")
     print(line, flush=True)
     return timed
+
+
+def big_code(pt, K: int):
+    """The K >= 18 codes of phases 3e and 4e: BIG_TAPS with g_(K-1) set."""
+    return pt.CodeSpec(f"K={K}", K, tuple((1 << (K - 1)) | g
+                                          for g in BIG_TAPS))
+
+
+def phase3e(pt, dev, rng, launches: dict) -> dict:
+    """K >= 18 at full width through the entry points: the K=18 SOFT16
+    decode of K18_B x K18_BITS noise-free bits (every frame equal to its
+    data; the first K18_PLAIN_FRAMES frames' bits, get_error and renorm
+    totals, and the kernel's metrics, words and acc, equal to the plain
+    versions on the card), the K=18 stream (equal to the data), and the
+    K=20 and K=21 decodes of WIDE_B x WIDE_BITS bits (equal to the data
+    and to the plain versions).  Returns the JSON line's entry."""
+    from viterbidecodercpp_torch.ops import encoder, plane, torch_core
+    out = {}
+    for K, B, N in ((18, K18_B, K18_BITS),
+                    *((k, WIDE_B, WIDE_BITS) for k in WIDE_K)):
+        code = big_code(pt, K)
+        n = K - 1
+        T = N + n
+        data = torch.as_tensor(rng.randint(0, 2, (B, N)).astype(np.uint8),
+                               device=dev)
+        syms = encoder.encode_symbols(code, data, 127, -127).reshape(B, -1)
+        dec = pt.ViterbiDecoder(code, "SOFT16", device=dev)
+        kernel = plane.acs_kernel(dec.spec)
+        require(dec.backend == "plane", f"K={K} took the {dec.backend} "
+                                        f"backend on the card")
+        rows = -(-T // plane.time_block_rows(dec.spec)) * \
+            plane.time_block_rows(dec.spec)
+        buf_gb = B * rows * dec.spec.W * 4 / 1e9
+        reset_counts()
+        t0 = time.perf_counter()
+        bits, err_, acc = dec.decode(syms, N)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = read_counts()
+        add_counts(launches, counts, (kernel, "plane_walk"),
+                   f"the K={K} decode")
+        exact = exact_frames(bits, data)
+        require(exact == B, f"K={K}: only {exact} of {B} frames decoded "
+                            f"exactly")
+        # the plain versions on the card over the first frames
+        F = min(B, K18_PLAIN_FRAMES)
+        spec = dec.spec
+        m0 = torch_core.initial_metrics(spec, F, 0, dev)
+        syms3 = syms[:F].reshape(F, T, code.R).to(torch.int32)
+        pm, pp, pa = plane.acs_plane_ref(spec, m0, syms3)
+        zero = torch.zeros(F, dtype=torch.int32, device=dev)
+        pbits = plane.walk_plane_frames_ref(spec, pp, zero)[:, n:]
+        require(torch.equal(bits[:F], pbits), f"K={K} bits != plain")
+        require(torch.equal(err_[:F], pm[0]), f"K={K} get_error != plain")
+        require(torch.equal(acc[:F], pa), f"K={K} acc != plain")
+        km, kp, ka = plane.acs_plane(spec, m0, syms3)
+        e = max(max_abs_diff(g, w) for g, w in zip((km, kp, ka),
+                                                   (pm, pp, pa)))
+        require(e == 0, f"K={K} ACS kernel != plain on the decode's first "
+                        f"{F} frames")
+        del pp, kp
+        print(f"phase3e ok: K={K} SOFT16 ({kernel}) B={B} T={T}: "
+              f"{exact}/{B} frames exact ({secs:.2f} s, decision buffer "
+              f"{B} x {rows} x {spec.W} words = {buf_gb:.2f} GB); the first "
+              f"{F} frames' bits, get_error and acc == the plain versions "
+              f"on the card, and the ACS kernel's metrics, words and acc == "
+              f"plain; launches "
+              f"{ {k: counts[k] for k in (kernel, 'plane_walk')} }",
+              flush=True)
+        out[f"K={K}"] = {"B": B, "T": T, "kernel": kernel, "exact": exact,
+                         "decision_gb": buf_gb}
+        if K != 18:
+            continue
+        # the K=18 stream, held to the data
+        n_push = -(-(T + K18_WINDOW + K18_CHUNK) // K18_CHUNK)
+        stream = padded_stream(syms.reshape(B, T, code.R).to(torch.int32),
+                               n_push * K18_CHUNK)
+        del syms, bits
+        sd = pt.StreamingDecoder(code, "SOFT16", window=K18_WINDOW,
+                                 chunk=K18_CHUNK, device=dev)
+        require(sd.backend == "plane", f"the K=18 stream took the "
+                                       f"{sd.backend} route")
+        reset_counts()
+        res, _ = run_stream(sd, stream, n_push)
+        torch.cuda.synchronize()
+        counts = read_counts()
+        add_counts(launches, counts, ("plane_acs", "plane_walk"),
+                   "the K=18 stream")
+        exact = exact_frames(committed(res, code, N), data)
+        require(exact == B, f"the K=18 stream: only {exact} of {B} frames "
+                            f"equal the data sent")
+        print(f"phase3e ok: K=18 SOFT16 stream B={B} window={K18_WINDOW} "
+              f"chunk={K18_CHUNK}, {n_push} pushes: {exact}/{B} streams "
+              f"equal the data sent; launches "
+              f"{ {k: counts[k] for k in ('plane_acs', 'plane_walk')} }",
+              flush=True)
+        out["K=18 stream"] = {"B": B, "pushes": n_push, "exact": exact}
+        del stream, res
+    return out
+
+
+def device_busy_ms(fn) -> float:
+    """The device time of the kernels one call of ``fn`` launches
+    (torch.profiler; one profiled call first, dropped: a window's first
+    device events can be lost)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    busy = 0.0
+    for e in prof.key_averages():
+        if e.key.startswith(("aten::", "ProfilerStep")):
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        busy += max(us, 0)
+    return busy / 1e3
+
+
+def phase4e(pt, dev, rng, card: str) -> dict:
+    """The two ACS routes past K=17 beside their bounds: kernel and plain
+    time at each BIG_TIMES shape (random symbols, reset metrics), its
+    time a trellis step and its share of the bound, and what bounds the
+    call: its kernels' device time (torch.profiler) and the host's time
+    to enqueue it.  Returns, per shape, the numbers the JSON line
+    reports."""
+    from viterbidecodercpp_torch.ops import plane, torch_core
+    out = {}
+    for K, B, N in BIG_TIMES:
+        code = big_code(pt, K)
+        spec = torch_core.make_static_spec(
+            code, pt.get_decode_config(pt.DecodeType.SOFT16, code.R))
+        T = N + K - 1
+        m0 = torch_core.initial_metrics(spec, B, 0, dev)
+        sy = torch.as_tensor(rng.randint(-127, 128, (B, T, code.R))
+                             .astype(np.int32), device=dev)
+        kernel = plane.acs_kernel(spec)
+        got = plane.acs_plane(spec, m0, sy)
+        want = plane.acs_plane_ref(spec, m0, sy)
+        e = max(max_abs_diff(g, w) for g, w in zip(got, want))
+        require(e == 0, f"{kernel} != plain at K={K} B={B} T={T}")
+        del got, want
+        ms = time_ms(lambda: plane.acs_plane(spec, m0, sy))
+        busy = device_busy_ms(lambda: plane.acs_plane(spec, m0, sy))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plane.acs_plane(spec, m0, sy)
+        enqueue = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        # one call: the plain versions take seconds here
+        plain = time_ms(lambda: plane.acs_plane_ref(spec, m0, sy), 1, 0)
+        bms, by = acs_bound(spec.S, B, T, code.R, spec.W)
+        layout = (f"a cluster of {spec.S >> 15} blocks a frame"
+                  if kernel == "plane_acs" else
+                  f"{spec.S >> 13} blocks of 256 threads a frame, a launch "
+                  f"a step")
+        print(f"phase4e {kernel} K={K} ({layout}) "
+              f"SOFT16 B={B} T={T}: kernel {ms:.4f} ms (median of {REPS}; "
+              f"{ms / T * 1e3:.3f} us a step), plain {plain:.4f} ms (one "
+              f"call), bound {bms:.6f} ms ({by}), share of the "
+              f"bound {bms / ms:.4f}; the call's kernels busy {busy:.4f} "
+              f"ms on the device, host enqueue {enqueue:.4f} ms; on {card}",
+              flush=True)
+        out[f"K={K}"] = {"kernel": kernel, "B": B, "T": T, "ms": ms,
+                         "us_a_step": ms / T * 1e3, "plain_ms": plain,
+                         "device_busy_ms": busy, "enqueue_ms": enqueue,
+                         "bound_ms": bms, "bound_by": by, "max_abs_err": e}
+        del m0, sy
+        torch.cuda.empty_cache()
+    return out
 
 
 def phase4d(pt, dev, card: str) -> dict:
@@ -1408,22 +1733,35 @@ def phase6(pt, dev, card: str, launches: dict, err: dict, seed: int,
 # -- phase 7: the harness on the card ----------------------------------------
 # The fuzzer's fixed cases, seeds 0 .. FUZZ_CASES - 1: deterministic, and
 # they reach every category of torch_fuzz_differential.REQUIRED (K=12/13
-# rotated block and the K=17 cluster among them).
+# rotated block, the K=17 cluster and K = 18..20 among them; K=20 seeds
+# launch the global-metric plane ACS).
 FUZZ_CASES = 500
 # the truncated-walk delta: Cassini SOFT16 at 0.5 dB, 4 batches of 64
 # frames x 1024 bits, tiles of 512 rows with 160 rows of warm-up; the
 # first batch's plane ACS, exact and truncated walk held to their plain
 # versions (tolerance 0)
 TRUNC_DELTA = {"bits": 1 << 18, "batch": 64, "block_bits": 1024}
+# torch_run_benchmark.py's kernel routes, -T 0.5 a combination, -M 256
+# (2048 data bits a frame): (code, decode type, frames)
+BENCH_ROWS = (("Voyager", "SOFT8", 1024), ("Cassini", "SOFT16", 512),
+              ("K=18", "SOFT16", K18_B))
+BENCH_SECONDS, BENCH_BYTES = 0.5, 256
 
 
 def phase7(dev, launches: dict, card: str) -> dict:
     """The port's harness tools, in this process, through the kernels:
     the run_tests matrix on both routes, run_simple, the Voyager and
-    Cassini streams, the truncated-walk BER delta and FUZZ_CASES seeded
-    fuzz cases against numpy_ref.  A failure raises; every kernel must
-    have launched.  Returns the JSON line's ``harness`` entry."""
+    Cassini streams, the truncated-walk BER delta, FUZZ_CASES seeded
+    fuzz cases against numpy_ref, then the measurement tools: the
+    benchmark's BENCH_ROWS through the JAX package's readers (in a
+    temporary directory) and a profile of Voyager decodes.  A failure
+    raises; every kernel must have launched.  Returns the JSON line's
+    ``harness`` entry."""
+    import tempfile
+
+    import viterbidecodercpp_torch as pt
     from tools import (torch_ber_truncated_delta, torch_fuzz_differential,
+                       torch_profile_trace, torch_run_benchmark,
                        torch_run_simple, torch_run_streaming, torch_run_tests)
     reset_counts()
     seconds = {}
@@ -1480,6 +1818,44 @@ def phase7(dev, launches: dict, card: str) -> dict:
           f"numpy_ref in {f['seconds']:.2f} s "
           f"({f['cases'] / f['seconds']:.2f} cases/s); {f['counts']}",
           flush=True)
+    # the measurement tools: the benchmark's rows through the JAX
+    # package's unmodified readers, and a profile of Voyager decodes
+    t = time.perf_counter()
+    rows = []
+    for name, mode, B in BENCH_ROWS:
+        code = big_code(pt, 18) if name == "K=18" else pt.get_code(name)
+        rows += torch_run_benchmark.run([code], [pt.DecodeType(mode)],
+                                        ["cuda"], B, BENCH_BYTES,
+                                        BENCH_SECONDS, dev)
+    routes = [r["simd_type"] for r in rows]
+    require(routes == ["ROTATED", "PLANE", "PLANE"],
+            f"torch_run_benchmark took the routes {routes}")
+    readers = {}
+    with tempfile.TemporaryDirectory() as work:
+        bench_path = os.path.join(work, "torch_benchmark.json")
+        with open(bench_path, "w") as fh:
+            json.dump(rows, fh, indent=1)
+        for tool in ("parse_benchmark.py", "compare_benchmark.py"):
+            proc = subprocess.run(
+                [sys.executable, os.path.join("tools", tool), bench_path],
+                capture_output=True, text=True, timeout=300)
+            require(proc.returncode == 0, f"{tool} refused the benchmark's "
+                                          f"rows: {proc.stderr[-2000:]}")
+            readers[tool] = proc.stdout
+        prof = torch_profile_trace.trace(work, 8, "voyager", dev)
+    print(f"phase7 run_benchmark: {len(rows)} rows (kernel routes, "
+          f"-T {BENCH_SECONDS}, {BENCH_BYTES * 8} data bits a frame) read by "
+          f"parse_benchmark.py and compare_benchmark.py (exit 0), on {card}:"
+          f"\n{readers['parse_benchmark.py'].rstrip()}", flush=True)
+    seconds["measurement_tools"] = time.perf_counter() - t
+    top = "; ".join(f"{k} {ms:.3f} ms x{c}" for k, ms, c in prof["top"][:4])
+    print(f"phase7 profile_trace: voyager, {prof['reps']} decodes of "
+          f"B={prof['B']} x T={prof['T']} ({prof['route']}), window "
+          f"{prof['window_ms']:.3f} ms, device busy "
+          f"{prof['device_busy_ms']:.3f} ms, idle share "
+          f"{prof['idle_share']:.4f}; top: {top} "
+          f"({seconds['measurement_tools']:.2f} s with the benchmark)",
+          flush=True)
     torch.cuda.synchronize()
     counts = read_counts()
     add_counts(launches, counts, KERNELS, "phase 7 (the harness)")
@@ -1491,6 +1867,11 @@ def phase7(dev, launches: dict, card: str) -> dict:
             "truncated_delta": {k: d[k] for k in (
                 "bits", "errors_exact", "errors_truncated", "disagree")},
             "fuzz": {"cases": f["cases"], "counts": f["counts"]},
+            "benchmark": [{k: r[k] for k in (
+                "name", "decode_type", "simd_type", "batch",
+                "update_symbols_ns", "chainback_bits_ns")} for r in rows],
+            "profile": {k: prof[k] for k in (
+                "window_ms", "device_busy_ms", "idle_share")},
             "seconds": seconds}
 
 
@@ -1517,6 +1898,11 @@ def main() -> None:
 
     dev = torch.device("cuda", 0)
     rng = np.random.RandomState(args.seed)
+    t_run = time.perf_counter()
+
+    def mark(what: str) -> None:
+        print(f"elapsed {time.perf_counter() - t_run:.1f} s after {what}",
+              flush=True)
 
     # -- phase 1: device and build --------------------------------------
     card = card_line()
@@ -1538,11 +1924,17 @@ def main() -> None:
           f"loaded in {time.perf_counter() - t0:.2f} s (parallel nvcc, g++)",
           flush=True)
 
+    mark("phase 1")
+
     # -- phase 2: kernels vs plain across each class --------------------
     err = phase2(pt, torch_core, rotated, chainback, dev, rng)
     err.update(phase2b(pt, torch_core, plane, dev, rng))
     for name, e in phase2c(pt, dev, rng).items():
         err[name] = max(err.get(name, 0), e)
+    for name, e in phase2d(pt, torch_core, plane, dev, rng).items():
+        err[name] = max(err.get(name, 0), e)
+
+    mark("phase 2")
 
     # -- phase 3: the flagship path at full size ------------------------
     code = pt.get_code("Voyager")
@@ -1613,7 +2005,8 @@ def main() -> None:
     ragged_b = dec_b.chainback(state_b, Nb)
     trunc_b = dec_b.chainback(state_b, Nb, mode="truncated")
     torch.cuda.synchronize()
-    add_counts(launches, read_counts(), plane.LAUNCHES, "the big-state path")
+    cassini_kernels = ("plane_acs", "plane_walk", "plane_walk_trunc")
+    add_counts(launches, read_counts(), cassini_kernels, "the big-state path")
     exact_b = exact_frames(bits_b, data_b)
     require(exact_b == Bb, f"only {exact_b} of {Bb} Cassini frames decoded "
                            f"exactly")
@@ -1640,13 +2033,18 @@ def main() -> None:
           f"exact; bits, final metrics and acc == plain state-order scan; "
           f"ragged updates of {np.diff(cuts_b).tolist()} steps agree; "
           f"truncated chainback (block 512, overlap 128) == exact; launches "
-          f"{ {k: launches[k] for k in plane.LAUNCHES} }", flush=True)
+          f"{ {k: launches[k] for k in cassini_kernels} }", flush=True)
 
     # -- phase 3c: the lane path at full size ----------------------------
     dec_l, syms_l, Nl = phase3c(pt, dev, rng, launches)
 
     # -- phase 3d: streaming at full size --------------------------------
     streams = phase3d(pt, dev, rng, launches, args.seed)
+
+    # -- phase 3e: K >= 18 at full width -----------------------------------
+    big_decodes = phase3e(pt, dev, rng, launches)
+
+    mark("phase 3")
 
     # -- phase 4: times on the card --------------------------------------
     ends = torch.zeros(B, dtype=torch.int32, device=dev)
@@ -1744,6 +2142,11 @@ def main() -> None:
                              "push_ms": push_ms,
                              "streamed_symbols_per_s":
                                  block.numel() / (push_ms / 1e3)})
+    # -- phase 4e: the plane ACS past K=17 beside its bounds ---------------
+    big_times = phase4e(pt, dev, rng, card)
+    wide = big_times[f"K={WIDE_K[0]}"]
+    ms["plane_acs_global"] = wide["ms"]
+    plain_ms["plane_acs_global"] = wide["plain_ms"]
     rows_w = N + code.K - 1                  # the chainback's rows
     nb = Nb + big.K - 1
     tiles = range(0, nb, 512)                # the truncated walk's tiles
@@ -1755,6 +2158,7 @@ def main() -> None:
         "plane_walk_trunc": walk_bound(
             sum(min(b0 + 512 + 128, nb) - b0 for b0 in tiles), Bb, Nb, 0),
         "lane_acs": acs_bound(spec_l.S, Bl, Tl, Rl, spec_l.W),
+        "plane_acs_global": (wide["bound_ms"], wide["bound_by"]),
     }
     shapes = {"rotated_acs": f"Voyager SOFT8 B={B} T={T}",
               "chainback": f"Voyager SOFT8 B={B} T={T}",
@@ -1762,7 +2166,9 @@ def main() -> None:
               "plane_walk": f"Cassini SOFT16 B={Bb} T={Tb}",
               "plane_walk_trunc": f"Cassini SOFT16 B={Bb} T={Tb}, "
                                   f"block 512 overlap 128",
-              "lane_acs": f"Basic K=5 SOFT16 B={Bl} T={Tl}"}
+              "lane_acs": f"Basic K=5 SOFT16 B={Bl} T={Tl}",
+              "plane_acs_global": f"K={WIDE_K[0]} SOFT16 B={wide['B']} "
+                                  f"T={wide['T']}"}
     for name in KERNELS:
         plain_reps = REPS if name in ("rotated_acs", "chainback") \
             else PLAIN_REPS
@@ -1788,8 +2194,12 @@ def main() -> None:
               f"{t['streamed_symbols_per_s']:.4e} streamed symbols/s "
               f"(B*chunk*R / s) on {card}", flush=True)
 
+    mark("phase 4")
+
     # -- phase 4d: the BER loop's times -----------------------------------
     ber_loop = phase4d(pt, dev, card)
+
+    mark("phase 4d")
 
     # -- phase 5: the BER engine against the reference curves -------------
     ber_points = phase5(pt, dev, launches, args.seed)
@@ -1797,11 +2207,16 @@ def main() -> None:
     # -- phase 5b: DAB FIC punctured decode ---------------------------------
     phase5b(dev, launches)
 
+    mark("phase 5")
+
     # -- phase 6: the parallel layer -----------------------------------------
     parallel = phase6(pt, dev, card, launches, err, args.seed)
 
+    mark("phase 6")
+
     # -- phase 7: the harness on the card ------------------------------------
     harness = phase7(dev, launches, card)
+    mark("phase 7")
 
     print(card, flush=True)
     print(json.dumps({"kernels": [
@@ -1818,7 +2233,8 @@ def main() -> None:
         "cassini_decoded_symbols_per_s": rate_b,
         "lane_decode_ms": decode_ms_l,
         "lane_decoded_symbols_per_s": rate_l,
-        "streams": stream_times, "ber_loop": ber_loop,
+        "streams": stream_times, "big_decodes": big_decodes,
+        "big_plane_times": big_times, "ber_loop": ber_loop,
         "ber_points": {k: ber_points[k] for k in ("bits", "seconds")},
         "parallel": parallel, "harness": harness}),
         flush=True)

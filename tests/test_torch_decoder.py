@@ -210,17 +210,21 @@ def test_entry_points_default_to_the_card():
 
 
 def test_cuda_device_outside_the_class_raises_not_implemented():
-    """No CUDA kernel for S > 65536 (a frame's metrics exceed the shared
-    memory of a cluster of two blocks): the decoder refuses at
-    construction instead of running a plain version on the card, which
-    stays for the CPU.  S < 64 takes the lane kernel and Cassini
-    (S = 16384) the plane kernels.  No card is touched."""
+    """Every S has a CUDA route: S < 64 takes the lane kernel, Cassini
+    (S = 16384) and every S > 65536 (K >= 18: clusters of four and eight
+    blocks, then the global-metric kernel) the plane kernels, on a CUDA
+    device and on the CPU alike, as the JAX gate routes them.  No card is
+    touched."""
     assert pt.ViterbiDecoder(pt.get_code("Basic K=3 R=1/2"), "SOFT8",
                              device="cuda").backend == "lane"
     k18 = pt.CodeSpec("K=18", 18, ((1 << 17) | 0o12345, (1 << 17) | 0o7651))
-    with pytest.raises(NotImplementedError, match="S <= 65536"):
-        pt.ViterbiDecoder(k18, "SOFT8", device="cuda")
-    assert pt.ViterbiDecoder(k18, "SOFT8", device="cpu").backend == "torch"
+    for K in (18, 19, 20, 21, 24):
+        code = pt.CodeSpec(f"K={K}", K, ((1 << (K - 1)) | 0o12345,
+                                         (1 << (K - 1)) | 0o7651))
+        for device in ("cuda", "cpu"):
+            assert pt.ViterbiDecoder(code, "SOFT8",
+                                     device=device).backend == "plane"
+    assert pt.ViterbiDecoder(k18, "SOFT16", device="cpu").backend == "plane"
     assert pt.ViterbiDecoder(pt.get_code("Cassini"), "SOFT8",
                              device="cuda").backend == "plane"
     assert pt.ViterbiDecoder(pt.get_code("Voyager"), "SOFT8",

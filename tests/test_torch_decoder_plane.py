@@ -74,6 +74,36 @@ def test_decode_matches_jax_pallas_and_xla(mode, arith):
         _eq(acc, ja)
 
 
+def test_k18_decode_matches_jax_xla():
+    """K=18 (S = 131072: a cluster of four blocks on the card) on the
+    plane route: decode, and two ragged updates + chainback, equal the
+    JAX xla decoder's bits, get_error, metrics and renorm totals."""
+    taps = ((1 << 17) | 0o12345, (1 << 17) | 0o7651)
+    code = pt.CodeSpec("K=18", 18, taps)
+    jcode = vt.CodeSpec("K=18", 18, taps)
+    B, T = 2, 2 * 17 + 3
+    dec = pt.ViterbiDecoder(code, "SOFT16", traceback_length=T - 17,
+                            device="cpu")
+    jdec = vt.ViterbiDecoder(jcode, "SOFT16", backend="xla",
+                             traceback_length=T - 17)
+    assert dec.backend == "plane"
+    syms = _syms(code, "SOFT16", B, T, seed=18, spread=3)
+    total_bits = T - 17
+    bits, err, acc = dec.decode(syms, total_bits, end_state=9)
+    jb, je, ja = jdec.decode(syms, total_bits, end_state=9)
+    _eq(bits, jb)
+    _eq(err, je)
+    _eq(acc, ja)
+    st = dec.reset(B)
+    jst = jdec.reset(B)
+    for lo, hi in ((0, 20), (20, T)):
+        st = dec.update(st, syms[:, lo * code.R:hi * code.R])
+        jst = jdec.update(jst, syms[:, lo * code.R:hi * code.R])
+    _eq(dec.chainback(st, total_bits), jdec.chainback(jst, total_bits))
+    _eq(st.metrics, jst.metrics)
+    _eq(st.accumulated_error, jst.accumulated_error)
+
+
 def test_ragged_updates_match_jax_rows_and_rots():
     """Chunks of 9, 14 and 15 steps: each restarts the rotation schedule;
     the buffer rows up to the cursor, row_rots, metrics and acc equal

@@ -27,8 +27,9 @@ from tools import torch_fuzz_differential as fuzz  # noqa: E402
 # seeds 0..11 cover the rotated warp and block designs (K=12/13
 # included), both walk designs, the lane and plane routes, the truncated
 # walk, the puncture and checkpoint arms and end states other than 0; 47
-# is a K=17 cluster case walked from another end state
-SEEDS = list(range(12)) + [47]
+# is a K=17 cluster case walked from another end state, 403 a K=18 case
+# (the cluster of four blocks on the card) with a truncated walk
+SEEDS = list(range(12)) + [47, 403]
 _FIELDS = ("metrics", "decisions", "accumulated_error", "bit_cursor")
 
 

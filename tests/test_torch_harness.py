@@ -7,10 +7,16 @@ harness tools (``tools/torch_run_simple.py``, ``torch_run_tests.py``,
 ``torch_run_streaming.py``, ``torch_ber_truncated_delta.py``) must pass
 with ``--cpu`` at small shapes, and the truncated-delta tool's check
 against the plain versions must catch a wrong kernel.  Every comparison
-is exact (tolerance 0).
+is exact (tolerance 0).  The measurement tools run with ``--cpu`` too:
+``torch_run_benchmark.py``'s rows are read by the unmodified
+``parse_benchmark.py`` and ``compare_benchmark.py``,
+``torch_profile_trace.py`` writes a Chrome trace, and
+``torch_ci_check.sh`` parses as a POSIX shell script.
 """
 
+import json
 import os
+import subprocess
 import sys
 
 import numpy as np
@@ -23,8 +29,9 @@ if ROOT not in sys.path:
 
 import viterbidecodercpp_torch as pt  # noqa: E402
 import viterbidecodercpp_tpu as vt  # noqa: E402
-from tools import (torch_ber_truncated_delta, torch_run_simple,  # noqa: E402
-                   torch_run_streaming, torch_run_tests)
+from tools import (torch_ber_truncated_delta,  # noqa: E402
+                   torch_profile_trace, torch_run_benchmark,
+                   torch_run_simple, torch_run_streaming, torch_run_tests)
 from viterbidecodercpp_torch.ops import numpy_ref as port_ref  # noqa: E402
 from viterbidecodercpp_tpu.ops import numpy_ref as jax_ref  # noqa: E402
 
@@ -160,3 +167,66 @@ def test_ber_truncated_delta_plain_check_catches_a_wrong_kernel(
         torch_ber_truncated_delta.measure(
             "cpu", bits=128, batch=1, block_bits=128, block=32, overlap=48,
             ebno=2.0)
+
+
+def test_run_benchmark_cpu_rows_read_by_parse_and_compare(tmp_path):
+    """Basic K=3 SOFT8 on the lane route's plain version and the plain
+    scan, at a tiny size: the rows keep the reference schema, and the
+    JAX package's parse_benchmark.py and compare_benchmark.py read them
+    unmodified (exit 0, one line a row)."""
+    out = tmp_path / "bench.json"
+    assert torch_run_benchmark.main(["--cpu", "-c", "0", "-d", "soft8",
+                                     "-B", "2", "-M", "2", "-T", "0.01",
+                                     "-o", str(out)]) == 0
+    rows = json.loads(out.read_text())
+    assert [r["simd_type"] for r in rows] == ["LANE", "TORCH"]
+    for r in rows:
+        assert r["name"] == "Basic K=3 R=1/2" and r["decode_type"] == "SOFT8"
+        assert (r["K"], r["R"], r["batch"], r["device"]) == (3, 2, 2, "cpu")
+        assert r["total_input_bits"] == 2 * 16
+        assert r["total_symbols"] == 2 * (16 + 2) * 2
+        assert r["update_symbols_ns"] and r["chainback_bits_ns"]
+        assert min(r["update_symbols_ns"] + r["chainback_bits_ns"]) >= 1
+    for tool in ("parse_benchmark.py", "compare_benchmark.py"):
+        proc = subprocess.run(
+            [sys.executable, os.path.join("tools", tool), str(out)],
+            cwd=ROOT, capture_output=True, text=True, timeout=120)
+        assert proc.returncode == 0, proc.stderr
+        lines = [ln for ln in proc.stdout.splitlines()
+                 if ln.startswith("Basic K=3")]
+        assert len(lines) == 2 and "LANE" in lines[0] \
+            and "TORCH" in lines[1]
+
+
+@pytest.mark.parametrize("busy_us,window_us,share",
+                         [(300.0, 1000.0, 0.7), (0.0, 5.0, 1.0),
+                          (1209.2, 1000.0, None)])
+def test_profile_trace_idle_share_stays_in_0_1(busy_us, window_us, share):
+    """A window that counted more kernel time than it lasted (idle share
+    below 0) raises instead of printing a share."""
+    if share is None:
+        with pytest.raises(RuntimeError, match="outside"):
+            torch_profile_trace.idle_share(busy_us, window_us)
+    else:
+        assert torch_profile_trace.idle_share(busy_us, window_us) == \
+            pytest.approx(share)
+
+
+def test_profile_trace_cpu_writes_a_trace(tmp_path, capsys):
+    """Two Voyager decodes at B=2 x 32 steps on the CPU: a Chrome trace
+    with events, the top operations, and no device share claimed."""
+    assert torch_profile_trace.main([str(tmp_path), "2", "voyager", "--cpu",
+                                     "-B", "2", "-T", "32"]) == 0
+    out = capsys.readouterr().out
+    trace = json.loads((tmp_path / "trace.json").read_text())
+    assert trace["traceEvents"]
+    assert "rotated route" in out and "top CPU operations" in out
+    assert "device idle share: not measured" in out
+
+
+def test_ci_check_script_parses():
+    proc = subprocess.run(["sh", "-n", os.path.join("tools",
+                                                    "torch_ci_check.sh")],
+                          cwd=ROOT, capture_output=True, text=True,
+                          timeout=60)
+    assert proc.returncode == 0, proc.stderr

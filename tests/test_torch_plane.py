@@ -5,10 +5,12 @@ Bit-exact on the state-order final metrics, the packed (B, T, WRr, 128)
 slot-order decision words in the JAX plane bit order, and the renorm
 accumulators: Cassini in the three regimes, wrapping arithmetic, a random
 K=14 code (n * WRr = 26 word rows per step), and out-of-range symbols at
-phase0 != 0 and T < n.  Random K=16 and K=17 codes (the kernel's one-block
-and two-block cluster cases on the card) are held against
-jax_core.acs_scan instead (bits through the plane walk, metrics, acc).  Each interpret-mode call takes seconds, so every one is compared
-against several port outputs.  The CUDA kernel's branch-pattern tables
+phase0 != 0 and T < n, and a random K=18 code (the kernel's cluster of
+four blocks on the card).  Random K=16..21 codes (one block, clusters of
+two, four and eight blocks, and the global-metric kernel on the card)
+are held against jax_core.acs_scan instead (bits through the plane walk,
+metrics, acc).  Each interpret-mode call takes seconds, so every one is
+compared against several port outputs.  The CUDA kernel's branch-pattern tables
 are held against the Pallas kernel's branch planes in numpy.  The
 kernel-vs-plain tests need a card (marked ``cuda``).
 """
@@ -89,6 +91,13 @@ def test_cassini_matches_pallas(mode, arith):
     _check_vs_pallas(js, ts, B=2, T=33, seed=len(mode) + len(arith))
 
 
+def test_random_k18_code_matches_pallas():
+    """K=18 (a cluster of four blocks on the card), wrapping, over 2n+3
+    steps from phase0 = 3: the plane words equal the JAX plane kernel's."""
+    js, ts = _spec_pair(_random_code(18, 2, 18), "SOFT16", "wrapping")
+    _check_vs_pallas(js, ts, B=2, T=37, seed=4, phase0=3)
+
+
 def test_random_k14_code_matches_pallas():
     """K=14: WRr = 2, so a step's decisions are 26 word rows of the
     chunk slab - the odd slab height the JAX kernel once gated out."""
@@ -110,19 +119,27 @@ def test_out_of_range_symbols_phase0_and_short_call_match_pallas():
         assert torch.equal(g, c)
 
 
-@pytest.mark.parametrize("K", [16, 17])
+@pytest.mark.parametrize("K", [16, 17, 18, 19, 20, 21])
 def test_random_k16_k17_codes_match_jax_core(K):
-    """K=16 (one 1024-thread block per frame on the card) and K=17 (a
-    cluster of two): metrics and acc equal the state-order XLA scan,
-    and the plane rows walk back to its bits."""
+    """K=16 (one 1024-thread block per frame on the card), K=17, 18 and
+    19 (clusters of two, four and eight) and K=20, 21 (the global-metric
+    kernel): metrics and acc equal the state-order XLA scan, and the
+    plane rows walk back to its bits.  Past K=17 over 2n+3 steps from
+    random metrics near metric_max, so the renorm gate fires and
+    subtracts a frame minimum that lies in any slot."""
     js, ts = _spec_pair(_random_code(K, 2, K), "SOFT16")
-    B, T = 2, 24
+    B, T = 2, (24 if K <= 17 else 2 * (K - 1) + 3)
     m0, syms = _inputs(js, B, T, seed=5)
+    if K >= 18:
+        m0 = (js.metric_max - np.random.RandomState(K).randint(
+            0, 4 * js.max_error + 1, m0.shape)).astype(np.int32)
     jm, jp, ja = jax_core.acs_scan(js, jnp.asarray(m0), jnp.asarray(syms))
     tm, tp, ta = plane.acs_plane(ts, torch.as_tensor(m0),
                                  torch.as_tensor(syms))
     np.testing.assert_array_equal(tm.numpy(), np.asarray(jm))
     np.testing.assert_array_equal(ta.numpy(), np.asarray(ja))
+    if K >= 18:
+        assert (ta != 0).all()
     total_bits = T - (js.K - 1)
     ends = np.array([0, 12345], np.int32)
     jb = jax_core.chainback_scan(js, jp, jnp.asarray(ends), total_bits)
@@ -165,6 +182,9 @@ def test_chained_calls_equal_one_call():
 
 
 def test_supports_gate_and_bounds():
+    """supports() is the JAX gate, with no upper bound; the CUDA ACS
+    kernel is chosen by K alone: the cluster kernel up to K=19, the
+    global-metric kernel above."""
     for name, want in (("Cassini", True), ("CDMA 2000", False),
                        ("Voyager", False)):
         js, ts = _spec_pair(vt.get_code(name), "SOFT8")
@@ -172,10 +192,16 @@ def test_supports_gate_and_bounds():
         assert bigstate_pallas.supports(js) is want
         assert plane.time_block_rows(ts) == \
             bigstate_pallas.time_block_rows(js)
-    for K, want in ((14, True), (17, True), (18, False)):
-        _, ts = _spec_pair(_random_code(K, 2, K), "SOFT8")
-        assert plane.supports(ts) is want
-    assert plane.MAX_PLANE_STATES == 1 << 16
+    for K, kernel in ((14, "plane_acs"), (17, "plane_acs"),
+                      (18, "plane_acs"), (19, "plane_acs"),
+                      (20, "plane_acs_global"), (21, "plane_acs_global"),
+                      (24, "plane_acs_global")):
+        js, ts = _spec_pair(_random_code(K, 2, K), "SOFT8")
+        assert plane.supports(ts) and bigstate_pallas.supports(js)
+        assert plane.acs_kernel(ts) == kernel
+    assert plane.MAX_CLUSTER_STATES == 1 << 18
+    assert set(plane.LAUNCHES) == {"plane_acs", "plane_acs_global",
+                                   "plane_walk", "plane_walk_trunc"}
 
 
 def test_bad_inputs_raise():
@@ -195,9 +221,10 @@ def test_bad_inputs_raise():
                                                     dtype=torch.int32))
     with pytest.raises(ValueError, match="row0 needs"):
         plane.acs_plane(ts, m0, sy, row0=1)
-    _, big = _spec_pair(_random_code(18, 2, 18), "SOFT8")
-    with pytest.raises(ValueError, match="plane kernels cover"):
-        plane.acs_plane_ref(big, torch_core.initial_metrics(big, 1),
+    # below the class (S <= 4096); above it there is no bound
+    _, small = _spec_pair(vt.get_code("Voyager"), "SOFT8")
+    with pytest.raises(ValueError, match="plane class covers S > 4096"):
+        plane.acs_plane_ref(small, torch_core.initial_metrics(small, 1),
                             torch.zeros((1, 2, 2), dtype=torch.int32))
     # the kernel's taps rebuild the whole branch table at K=15 R=6
     g = rotated._gmask(ts)
@@ -275,18 +302,25 @@ def test_step_tables_give_each_slot_its_branch_metric(K, R):
                                             (17, 2, "SOFT16", "wrapping"),
                                             (15, 8, "SOFT16", "wrapping"),
                                             (14, 11, "HARD8", "saturating"),
-                                            (17, 6, "SOFT16", "saturating")])
+                                            (17, 6, "SOFT16", "saturating"),
+                                            (18, 2, "SOFT16", "saturating"),
+                                            (19, 6, "SOFT8", "wrapping"),
+                                            (20, 2, "HARD8", "saturating"),
+                                            (21, 6, "SOFT16", "wrapping")])
 def test_cuda_kernel_matches_plain(cuda_device, K, R, mode, arith):
     jcode = vt.get_code("Cassini") if K == 15 else _random_code(K, R, K)
     _, ts = _spec_pair(jcode, mode, arith)
     m0, syms = _inputs(ts, 20, 61, seed=1, spread=3)
     m0 = torch.as_tensor(m0, device=cuda_device)
     sy = torch.as_tensor(syms, device=cuda_device)
-    before = plane.LAUNCHES["plane_acs"]
+    kernel = plane.acs_kernel(ts)
+    before = plane.LAUNCHES[kernel]
     for phase0 in (0, 3):
         got = plane.acs_plane(ts, m0, sy, phase0=phase0)
         torch.cuda.synchronize()
         want = plane.acs_plane_ref(ts, m0, sy, phase0=phase0)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
-    assert plane.LAUNCHES["plane_acs"] == before + 2
+    # the global route launches an init, one kernel a step and a finish
+    per_call = 1 if kernel == "plane_acs" else sy.shape[1] + 2
+    assert plane.LAUNCHES[kernel] == before + 2 * per_call

@@ -144,7 +144,8 @@ def test_port_imports_neither_jax_nor_triton():
 
 HARNESS_TOOLS = ("torch_run_simple.py", "torch_run_tests.py",
                  "torch_run_streaming.py", "torch_ber_truncated_delta.py",
-                 "torch_fuzz_differential.py")
+                 "torch_fuzz_differential.py", "torch_run_benchmark.py",
+                 "torch_profile_trace.py")
 # One child a tool, with jax blocked from import: import the oracle, then
 # run the tool as a script with --help and with no argument, and report
 # each run's exit code (SystemExit's code) and standard output.

@@ -127,6 +127,29 @@ def test_plane_route_matches_jax_xla_and_plane_ring():
         _eq(getattr(s, f), getattr(js, f))
 
 
+def test_k18_stream_matches_jax_xla():
+    """K=18 on the plane route (a cluster of four blocks on the card;
+    chunk % 17 != 0): every push's bits and valid, and the final metrics
+    and row count, equal the JAX xla streamer's."""
+    taps = ((1 << 17) | 0o12345, (1 << 17) | 0o7651)
+    code = pt.CodeSpec("K=18", 18, taps)
+    window, chunk = 48, 16
+    sd = StreamingDecoder(code, "SOFT16", window=window, chunk=chunk,
+                          device="cpu")
+    jsd = JaxStreaming(vt.CodeSpec("K=18", 18, taps), "SOFT16",
+                       window=window, chunk=chunk, backend="xla")
+    assert sd.backend == "plane"
+    st, jst = sd.reset(2), jsd.reset(2)
+    for blk in _blocks(code, "SOFT16", 2, chunk, 5, seed=18, spread=3):
+        st, bits, valid = sd.push(st, blk)
+        jst, jbits, jvalid = jsd.push(jst, jnp.asarray(blk))
+        assert valid == bool(jvalid)
+        _eq(bits, jbits)
+    _eq(st.metrics, jst.metrics)
+    _eq(st.rows_seen, jst.rows_seen)
+    assert st.history.shape == (2, window, 32, 128)
+
+
 def test_argmin_ties_take_the_first_minimum():
     """Zero symbols carry no information, so many states tie for the
     best metric; the walk must start from the first of them, as
@@ -181,10 +204,9 @@ def test_priming_and_errors():
         StreamingDecoder(code, "HARD8", window=64, chunk=16,
                          backend="rotated", device="cpu")
     k18 = pt.CodeSpec("K=18", 18, ((1 << 17) | 0o12345, (1 << 17) | 0o7651))
-    with pytest.raises(NotImplementedError, match="S <= 65536"):
-        StreamingDecoder(k18, "SOFT8", window=64, chunk=16, device="cuda")
-    assert StreamingDecoder(k18, "SOFT8", window=64,
-                            chunk=16, device="cpu").backend == "torch"
+    for device in ("cuda", "cpu"):
+        assert StreamingDecoder(k18, "SOFT8", window=64, chunk=16,
+                                device=device).backend == "plane"
     for name, route in (("Basic K=3 R=1/2", "lane"), ("Voyager", "rotated"),
                         ("Cassini", "plane")):
         assert StreamingDecoder(pt.get_code(name), "SOFT8", window=64,

@@ -3,12 +3,15 @@
 twin of tools/fuzz_differential.py).
 
 Every case draws a random code (K = 3..17 with the top and bottom taps
-set, R = 2..4 and a small share up to the kernels' 1/16), a random regime
+set, and a 2 % share at K = 18..20 whose draw leaves every other case
+as it was; R = 2..4 and a small share up to the kernels' 1/16), a random
+regime
 (SOFT16 / SOFT8 / HARD8, 30 % wrapping), a random batch and bit count and
 pure-noise symbols over the soft range (the tie rules and the renorm get
 stressed), and decodes it on two routes of the same device: the kernel
 route the decoder picks (rotated warp or block design, lane or plane ACS;
-tiled, chain-loaded or plane walk) and the plain scan
+tiled, chain-loaded or plane walk; the plane ACS as one block, a
+cluster, or with global-memory metrics from K=20) and the plain scan
 (``backend="torch"``).  Each route is held frame by frame to the port's
 ``ops/numpy_ref.py`` oracle, bit for bit:
 
@@ -61,9 +64,15 @@ from viterbidecodercpp_torch.puncture import puncture_np
 # The categories a long enough run must cover (chip_smoke.py phase 7).
 REQUIRED = ("rotated warp", "rotated block", "rotated block K=12/13",
             "tiled walk", "chain walk", "lane", "plane block K=14..16",
-            "plane cluster K=17", "torch", "truncated walk", "puncture arm",
-            "checkpoint arm", "end state != 0")
+            "plane cluster K=17", "plane K>=18", "torch", "truncated walk",
+            "puncture arm", "checkpoint arm", "end state != 0")
 TRUNC_BLOCK, TRUNC_OVERLAP = 8, 48
+# The share of cases at K = 18..20 (clusters of four and eight blocks,
+# global-memory metrics), one frame of at most HUGE_MAX_BITS bits (the
+# oracle takes ~0.02 s a step at K=20): drawn from a stream of its own,
+# so every other seed draws the case it drew before
+HUGE_SHARE = 0.02
+HUGE_MAX_BITS = 20
 
 
 class Mismatch(AssertionError):
@@ -101,8 +110,12 @@ class Case:
 def draw(seed: int) -> Case:
     """The case of ``seed``; depends on the seed alone, not the device."""
     rng = np.random.RandomState(seed)
+    huge = np.random.RandomState([seed, 18])
     big = rng.rand() < 0.15
     K = int(rng.randint(14, 18) if big else rng.randint(3, 14))
+    huge_case = huge.rand() < HUGE_SHARE
+    if huge_case:
+        big, K = True, int(huge.randint(18, 21))
     R = int(rng.randint(5, torch_core.KERNEL_MAX_RATE + 1)
             if rng.rand() < 0.1 else rng.randint(2, 5))
     mask = (1 << K) - 1
@@ -115,6 +128,8 @@ def draw(seed: int) -> Case:
     config = pt.get_decode_config(dt, R, arith=arith)
     B = int(rng.randint(1, 3 if big else 5))
     total_bits = int(rng.randint(8, 30 if big else 80))
+    if huge_case:
+        B, total_bits = 1, min(total_bits, HUGE_MAX_BITS)
     T = total_bits + K - 1
     syms = rng.randint(config.soft_decision_low,
                        config.soft_decision_high + 1,
@@ -187,8 +202,11 @@ def categories(case: Case, route: str) -> list:
     elif route == "lane":
         out.append("lane")
     elif route == "plane":
-        out.append("plane cluster K=17" if case.code.K == 17
-                   else "plane block K=14..16")
+        K = case.code.K
+        out.append("plane K>=18" if K >= 18 else "plane cluster K=17"
+                   if K == 17 else "plane block K=14..16")
+        if K >= 20:
+            out.append("plane global K>=20")
         if case.total_bits >= 16:
             out.append("truncated walk")
     else:

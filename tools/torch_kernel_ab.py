@@ -23,7 +23,7 @@ runs next to this tree's in one process.  On one CUDA card, with
   SOFT8, B=1024, T=2048);
 * profiles five of this tree's Voyager decodes with ``torch.profiler``:
   device time per kernel and the device's idle share of the window;
-* prints ptxas's register and spill counts for this tree's two sources.
+* prints ptxas's register and spill counts of both trees' two sources.
 
 With ``--path plane`` (the big-state path, Cassini K=15 R=1/6 SOFT16) it
 
@@ -40,7 +40,11 @@ With ``--path plane`` (the big-state path, Cassini K=15 R=1/6 SOFT16) it
   K = 14, 16 and 17 (random codes, B=512, T=2062), checked equal;
 * sweeps the batch of both trees' plane ACS at T=2062 over B in {1, 132,
   264, 265, 512}: two frames share an SM, so B=265 starts a second wave;
-* prints ptxas's register and spill counts for this tree's plane_acs.cu,
+* times both trees' plane ACS in turns on random K=17, 18 and 19 codes
+  (clusters of 2, 4 and 8 blocks a frame), SOFT16, T=2064, at one frame,
+  a full card and (K=17) two waves; checked equal; a code the earlier
+  tree refuses is timed on this tree alone;
+* prints ptxas's register and spill counts of both trees' plane_acs.cu,
   plane_walk.cu and plane_walk_trunc.cu.
 
 With ``--path lane`` (the lane path, Basic K=5 R=1/2 SOFT16) it
@@ -57,7 +61,7 @@ With ``--path lane`` (the lane path, Basic K=5 R=1/2 SOFT16) it
   at the push's shape (B=1024, T=32, clamped symbols) in three rounds:
   the push is host-bound and its turns spread more than its kernel's;
 * profiles five of this tree's Basic K=5 decodes with ``torch.profiler``;
-* prints ptxas's register and spill counts for this tree's lane_acs.cu
+* prints ptxas's register and spill counts of both trees' lane_acs.cu
   and chainback.cu.
 
 It prints one JSON line (also written to FILE).  Imports nothing of JAX.
@@ -82,7 +86,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import viterbidecodercpp_torch as this  # noqa: E402
-from viterbidecodercpp_torch.ops import _build  # noqa: E402
+import viterbidecodercpp_torch.ops._build  # noqa: E402,F401 (this.ops._build)
 
 SOURCES = {"rotated": ("rotated_acs", "chainback"),
            "plane": ("plane_acs", "plane_walk", "plane_walk_trunc"),
@@ -91,6 +95,9 @@ SWEEP_B = (1, 32, 132, 264, 528, 1024, 2048, 4096)
 PLANE_SWEEP_B = (1, 132, 264, 265, 512)
 WALK_SWEEP_B = (1, 132, 512, 2048)
 WALK_SWEEP_K = (14, 16, 17)
+# (K, B): 66, 30 and 15 clusters of 2, 4 and 8 blocks fill an H100
+CLUSTER_SWEEP = ((17, 1), (17, 66), (17, 132), (18, 1), (18, 64), (19, 1),
+                 (19, 16))
 TURNS = ("earlier", "this", "this", "earlier")
 
 
@@ -124,15 +131,18 @@ def load_package(root: Path, name: str):
     return mod
 
 
-def ptxas_report(sources) -> dict:
-    """Registers and spills per kernel of this tree's ``sources``."""
+def ptxas_report(build, sources) -> dict:
+    """Registers and spills per kernel of ``sources`` of the tree whose
+    ``ops._build`` module is ``build``, each after the line naming its
+    (mangled) entry function."""
     def one(name):
         proc = subprocess.run(
-            [_build._nvcc(), *_build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
-             "/dev/null", str(_build.CSRC_DIR / f"{name}.cu")],
+            [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o",
+             "/dev/null", str(build.CSRC_DIR / f"{name}.cu")],
             capture_output=True, text=True, check=True)
         return name, [ln.strip() for ln in proc.stderr.splitlines()
-                      if "registers" in ln or "spill" in ln]
+                      if "registers" in ln or "spill" in ln
+                      or "Compiling entry" in ln]
 
     with ThreadPoolExecutor(len(sources)) as pool:
         return dict(pool.map(one, sources))
@@ -250,7 +260,41 @@ def plane_ab(pk: dict, rng) -> dict:
                       "earlier_ms": time_ms(fb["earlier"])})
         print(f"plane sweep: {json.dumps(sweep[-1])}", flush=True)
     res["plane_acs_batch_sweep_t2062"] = sweep
+    res["plane_acs_clusters_t2064"] = cluster_sweep(pk, rng)
     return res
+
+
+def cluster_sweep(pk: dict, rng) -> list:
+    """Both trees' plane ACS on random K=17..19 R=1/2 codes (clusters of 2,
+    4 and 8 blocks a frame), SOFT16, T=2064, at each (K, B) of
+    CLUSTER_SWEEP, in turns, checked equal; where the earlier tree refuses
+    the code (its plane class ended at K=17) this tree's alone."""
+    T = 2064
+    out = []
+    for K in sorted({k for k, _ in CLUSTER_SWEEP}):
+        G = tuple(int(rng.randint(0, 1 << K)) | 1 | (1 << (K - 1))
+                  for _ in range(2))
+        sk = {w: spec_of(p, p.CodeSpec(f"K={K}", K, G), "SOFT16")
+              for w, p in pk.items()}
+        top = max(b for k, b in CLUSTER_SWEEP if k == K)
+        syms = torch.as_tensor(rng.randint(-127, 128, (top, T, 2))
+                               .astype(np.int32), device="cuda")
+        m0 = this.ops.torch_core.initial_metrics(sk["this"], top, 0, "cuda")
+        for b in (b for k, b in CLUSTER_SWEEP if k == K):
+            sb = syms[:b].contiguous()
+            mb = m0[:, :b].contiguous()
+            fb = {w: (lambda p=p, s=sk[w]: p.ops.plane.acs_plane(s, mb, sb))
+                  for w, p in pk.items()}
+            try:
+                same(fb["this"](), fb["earlier"](), f"K={K} plane ACS B={b}")
+                times = in_turns(fb)
+            except ValueError:      # outside the earlier tree's plane class
+                times = {"this": [time_ms(fb["this"]) for _ in range(2)]}
+            out.append({"K": K, "B": b,
+                        **{f"{w}_ms": v for w, v in times.items()}})
+            print(f"cluster sweep: {json.dumps(out[-1])}", flush=True)
+            del sb, mb
+    return out
 
 
 def walk_sweep(pk: dict, rng) -> list:
@@ -488,13 +532,15 @@ def main() -> None:
     old = load_package(args.parent.resolve(), "viterbidecodercpp_torch_ab")
     pk = {"earlier": old, "this": this}
     sources = SOURCES[args.path]
-    with ThreadPoolExecutor(2 * len(sources) + 1) as pool:
-        ptxas = pool.submit(ptxas_report, sources)
+    with ThreadPoolExecutor(2 * len(sources) + 2) as pool:
+        ptxas = {w: pool.submit(ptxas_report, p.ops._build, sources)
+                 for w, p in pk.items()}
         builds = [pool.submit(p.ops._build.load, n)
                   for p in (old, this) for n in sources]
         for f in builds:
             f.result()
-        res = {"card": card, "path": args.path, "ptxas": ptxas.result()}
+        res = {"card": card, "path": args.path,
+               "ptxas": {w: f.result() for w, f in ptxas.items()}}
     paths = {"rotated": rotated_ab, "plane": plane_ab, "lane": lane_ab}
     res.update(paths[args.path](pk, rng))
 

@@ -5,7 +5,7 @@ update / chainback / get_error / decode, the same decoder state and
 checkpoint format) and fixed-latency streaming (StreamingDecoder), held
 bit-for-bit against it.  Hot loops run as CUDA kernels written for Hopper:
 ops/rotated.py and ops/chainback.py for 64 <= S <= 4096, ops/plane.py for
-4096 < S <= 65536, ops/lane.py and ops/chainback.py for S <= 32.  Plain
+S > 4096, ops/lane.py and ops/chainback.py for S <= 32.  Plain
 torch versions of each kernel serve CPU tensors.  utils/testsig.py holds
 the AWGN channel model, utils/native.py the native host chain,
 puncture.py the puncture schedules and ber.py the BER engine (Eb/No

@@ -1,4 +1,4 @@
-// Plane add-compare-select for 8192 <= S <= 65536 states (Hopper).
+// Plane add-compare-select for 8192 <= S <= 262144 states (Hopper).
 //
 // Replaces the JAX package's TPU kernel ops/bigstate_pallas.py
 // (_make_kernel, launched by _acs_plane_padded) and computes exactly what
@@ -10,11 +10,13 @@
 // renorm is gated on slot 0 (state 0 at every phase) and subtracts the
 // frame minimum over all S slots.  The decision bits keep the JAX plane
 // layout: slot q is plane row q >> 7, lane q & 127, and its bit is bit
-// (q >> 7) & 31 of word [b, row0 + t, (q >> 7) >> 5, q & 127].
+// (q >> 7) & 31 of word [b, row0 + t, (q >> 7) >> 5, q & 127].  Larger S
+// (K >= 20) take csrc/plane_acs_global.cu.
 //
 // What bounds it on the H100: the issue of per-slot work.  One frame's
-// int32 metrics are 32 KB at K=14, 64 KB at K=15, 128 KB at K=16 and
-// 256 KB at K=17, over the 227 KB one block can have, so each step is a
+// int32 metrics are 32 KB at K=14, 64 KB at K=15, 128 KB at K=16, and
+// 256 KB, 512 KB and 1 MB at K=17, 18 and 19, over the 227 KB one block
+// can have (split over a cluster of 2, 4 and 8 blocks), so each step is a
 // chain of dependent phases of one block (the partner reads, a frame-wide
 // minimum, the in-place writes) and the frames resident per SM set the
 // throughput: two up to K=15 (64 registers a thread), one above.  Within
@@ -39,17 +41,20 @@
 // slots q = (wr << 12) | (k << 7) | lane, k = 0..31, and ORs their
 // decision bits into its own word, so there is no ballot and consecutive
 // threads store consecutive words.  A frame is one thread block of
-// S/32 threads (256 at K=14, 512 at K=15, 1024 at K=16); at K=17 it is a
-// cluster of two 1024-thread blocks on two SMs, block r holding slots
-// [r S/2, (r+1) S/2) - only the phase that pairs across the top bit reads
-// the partner from the other block's shared memory (distributed shared
-// memory), and the frame minimum and slot 0 are read there too.  The
-// metrics sit in one int32 buffer (above 48 KB only after
-// cudaFuncSetAttribute) and the butterfly is in place: every thread reads
-// its slots' self and partner values and keeps the 32 new values in
-// registers; after a barrier, the warps' minima and the new slot-0 value
+// S/32 threads (256 at K=14, 512 at K=15, 1024 at K=16); above, it is a
+// cluster of CL = S/32768 1024-thread blocks on CL SMs (2 at K=17, 4 at
+// K=18, 8 at K=19, 128 KB of metrics each), block r holding slots
+// [r SB, (r+1) SB), SB = 32768 - only a phase that pairs across the top
+// log2(CL) bits (dist >= SB) reads its partner from another block's
+// shared memory (distributed shared memory), from rank r ^ (dist / SB);
+// the frame minimum folds every rank's warp minima and slot 0 is read
+// from rank 0, each through addresses mapped once before the first
+// step.  The metrics sit in one int32 buffer (above 48 KB only after
+// cudaFuncSetAttribute) and the butterfly is in place: every thread
+// reads its slots' self and partner values and keeps the 32 new values
+// in registers; after a barrier, the warps' minima and the new slot-0 value
 // give the renorm, and the renormalised values are written back before a
-// second barrier (cluster-wide barriers at K=17).  int32 keeps the kernel
+// second barrier (cluster-wide barriers at K >= 17).  int32 keeps the kernel
 // exact for any int32 input metrics and symbols, as the plain version
 // is.
 //
@@ -88,7 +93,7 @@
 namespace cg = cooperative_groups;
 
 #define VDT_MAX_R 16
-#define VDT_MAX_N 16
+#define VDT_MAX_N 18  // K=19: a cluster of 8 blocks
 #define VDT_GROUP_R 8  // rates per branch-metric table (256 entries)
 
 struct PlaneParams {
@@ -100,10 +105,14 @@ struct PlaneParams {
   // offset into the table: 4 * pattern(rotl_n((k << 7) & ~2^j, phi))
   int kpat[VDT_MAX_N][32];
 };
+// a kernel's parameters stay within the classic 4 KB
+static_assert(sizeof(PlaneParams) < 4096, "PlaneParams over 4 KB");
 
-// rotl within n bits; k in [0, n), x < 2^n
+// rotl within n bits; k in [0, n), x < 2^n (unsigned: x << k may pass
+// bit 31 before the mask)
 __device__ __forceinline__ int rotl_n(int x, int k, int n, int mask) {
-  return ((x << k) | (x >> (n - k))) & mask;
+  const unsigned u = (unsigned)x;
+  return (int)(((u << k) | (u >> (n - k))) & (unsigned)mask);
 }
 
 // int32 arithmetic that wraps, as the plain version's does
@@ -166,14 +175,20 @@ __global__ void __launch_bounds__(W, W <= 512 ? 2 : 1)
   const int wlane = tid & 31;
   const int* sym_b = sym + (size_t)b * p.T * R;
   int* out = packed + ((size_t)b * p.n_phys + p.row0) * (W * CL) + word_id;
-  // the other block of the cluster: partner half, minima and slot 0
-  int* other_m = m;
-  const int* other_red = red;
+  // the other ranks' shared memory, mapped once into tables that a step
+  // reads with one broadcast load (in registers, CL - 1 pointers would
+  // spill): the metrics and the warp minima of rank rank ^ x at
+  // peer_m[x] and peer_red[x]; slot 0 lives in rank 0
+  __shared__ const int* peer_m[CL];
+  __shared__ const int* peer_red[CL];
   const int* slot0_src = &slot0;
   if constexpr (CL > 1) {
+    static_assert(NWARPS == 32, "a cluster's blocks have 32 warps");
     cg::cluster_group cluster = cg::this_cluster();
-    other_m = cluster.map_shared_rank(m, rank ^ 1);
-    other_red = cluster.map_shared_rank(red, rank ^ 1);
+    if (tid < CL) {
+      peer_m[tid] = cluster.map_shared_rank(m, rank ^ tid);
+      peer_red[tid] = cluster.map_shared_rank(red, rank ^ tid);
+    }
     slot0_src = cluster.map_shared_rank(&slot0, 0);
   }
   auto barrier = [] {
@@ -210,10 +225,14 @@ __global__ void __launch_bounds__(W, W <= 512 ? 2 : 1)
   for (int t = 0; t < p.T; ++t) {
     const int dist = 1 << (n - 1 - phi);
     // the partner of slot k, byte offset (pt | ((k << 7) ^ kd)) << 2 in pm:
-    // the pairing bit lies in the thread part or in the register part; at
-    // K=17 the top-bit phase pairs each slot with the other block
-    const char* pm = reinterpret_cast<const char*>(
-        (CL > 1 && dist >= SB) ? other_m : m);
+    // the pairing bit lies in the thread part or in the register part; in
+    // a cluster a phase with dist >= SB pairs each slot with the same
+    // offset in block rank ^ (dist / SB)
+    const int* pbase = m;
+    if constexpr (CL > 1) {
+      if (dist >= SB) pbase = peer_m[dist / SB];
+    }
+    const char* pm = reinterpret_cast<const char*>(pbase);
     const int kd = (dist & (31 << 7)) << 2;
     const int pt = ((tb ^ dist) & (SB - 1) & ~(31 << 7)) << 2;
     // the thread part of the step's branch patterns, as a byte offset
@@ -270,7 +289,10 @@ __global__ void __launch_bounds__(W, W <= 512 ? 2 : 1)
     barrier();  // every read of step t is done; minima published
     int v = wlane < NWARPS ? red[wlane] : INT_MAX;
     if constexpr (CL > 1) {
-      if (wlane < NWARPS) v = min(v, other_red[wlane]);
+      // the frame minimum: lane l folds entry l of every other rank, one
+      // rank's 32 contiguous minima a load
+#pragma unroll
+      for (int x = 1; x < CL; ++x) v = min(v, peer_red[x][wlane]);
     }
     const int mn = __reduce_min_sync(0xffffffffu, v);
     const int sub = *slot0_src >= p.thr ? mn : 0;
@@ -298,38 +320,50 @@ __global__ void __launch_bounds__(W, W <= 512 ? 2 : 1)
   if (word_id == 0) acc_out[b] = (int)acc;
 }
 
+// the launch configuration of B frames as clusters of CL blocks
+template <int W, int CL>
+static cudaLaunchConfig_t cluster_config(int B, cudaStream_t st,
+                                         cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B * CL);
+  cfg.blockDim = dim3(W);
+  cfg.dynamicSmemBytes = (size_t)(W << 5) * sizeof(int);
+  cfg.stream = st;
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = CL;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+template <int W, int CL, int NG, bool SAT>
+static cudaError_t set_shmem() {
+  return cudaFuncSetAttribute(plane_acs_kernel<W, CL, NG, SAT>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (W << 5) * (int)sizeof(int));
+}
+
 template <int W, int CL, int NG, bool SAT>
 static int launch(const int* mi, const int* sy, int* mo, int* pk, int* ac,
                   const PlaneParams& p, cudaStream_t st) {
-  const size_t shmem = (size_t)(W << 5) * sizeof(int);
-  cudaError_t e = cudaFuncSetAttribute(
-      plane_acs_kernel<W, CL, NG, SAT>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shmem);
+  cudaError_t e = set_shmem<W, CL, NG, SAT>();
   if (e != cudaSuccess) return (int)e;
   if constexpr (CL == 1) {
-    plane_acs_kernel<W, CL, NG, SAT><<<p.B, W, shmem, st>>>(mi, sy, mo, pk,
-                                                            ac, p);
-    return (int)cudaGetLastError();
+    plane_acs_kernel<W, CL, NG, SAT><<<p.B, W, (W << 5) * sizeof(int), st>>>(
+        mi, sy, mo, pk, ac, p);
   } else {
-    cudaLaunchConfig_t cfg = {};
-    cfg.gridDim = dim3(p.B * CL);
-    cfg.blockDim = dim3(W);
-    cfg.dynamicSmemBytes = shmem;
-    cfg.stream = st;
     cudaLaunchAttribute attr[1];
-    attr[0].id = cudaLaunchAttributeClusterDimension;
-    attr[0].val.clusterDim.x = CL;
-    attr[0].val.clusterDim.y = 1;
-    attr[0].val.clusterDim.z = 1;
-    cfg.attrs = attr;
-    cfg.numAttrs = 1;
+    const cudaLaunchConfig_t cfg = cluster_config<W, CL>(p.B, st, attr);
     e = cudaLaunchKernelEx(&cfg, plane_acs_kernel<W, CL, NG, SAT>, mi, sy, mo,
                            pk, ac, p);
     if (e != cudaSuccess) return (int)e;
-    return (int)cudaGetLastError();
   }
+  return (int)cudaGetLastError();
 }
 
+// one block of S/32 threads up to K=16, then clusters of S/32768 blocks
 template <int NG, bool SAT>
 static int launch_n(const int* mi, const int* sy, int* mo, int* pk, int* ac,
                     const PlaneParams& p, cudaStream_t st) {
@@ -340,8 +374,51 @@ static int launch_n(const int* mi, const int* sy, int* mo, int* pk, int* ac,
       return launch<512, 1, NG, SAT>(mi, sy, mo, pk, ac, p, st);
     case 15:
       return launch<1024, 1, NG, SAT>(mi, sy, mo, pk, ac, p, st);
-    default:
+    case 16:
       return launch<1024, 2, NG, SAT>(mi, sy, mo, pk, ac, p, st);
+    case 17:
+      return launch<1024, 4, NG, SAT>(mi, sy, mo, pk, ac, p, st);
+    case 18:
+      return launch<1024, 8, NG, SAT>(mi, sy, mo, pk, ac, p, st);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+template <int CL, int NG, bool SAT>
+static int max_clusters(int* out) {
+  const cudaError_t e = set_shmem<1024, CL, NG, SAT>();
+  if (e != cudaSuccess) return (int)e;
+  cudaLaunchAttribute attr[1];
+  const cudaLaunchConfig_t cfg = cluster_config<1024, CL>(1, nullptr, attr);
+  return (int)cudaOccupancyMaxActiveClusters(
+      out, (const void*)plane_acs_kernel<1024, CL, NG, SAT>, &cfg);
+}
+
+template <int CL>
+static int max_clusters_r(int R, int saturating, int* out) {
+  if (R <= VDT_GROUP_R)
+    return saturating ? max_clusters<CL, 1, true>(out)
+                      : max_clusters<CL, 1, false>(out);
+  return saturating ? max_clusters<CL, 2, true>(out)
+                    : max_clusters<CL, 2, false>(out);
+}
+
+// cudaOccupancyMaxActiveClusters of the cluster kernel that serves
+// (K = 17..19, R, regime) into *out; launches nothing
+extern "C" int vdt_plane_acs_clusters(int K, int R, int saturating,
+                                      int* out) {
+  if (R < 1 || R > VDT_MAX_R || out == nullptr)
+    return (int)cudaErrorInvalidValue;
+  switch (K - 1) {
+    case 16:
+      return max_clusters_r<2>(R, saturating, out);
+    case 17:
+      return max_clusters_r<4>(R, saturating, out);
+    case 18:
+      return max_clusters_r<8>(R, saturating, out);
+    default:
+      return (int)cudaErrorInvalidValue;
   }
 }
 

@@ -15,14 +15,11 @@ count S = 2**(K-1):
 
   * 64 <= S <= 4096 (K = 7..13): the rotated in-place ACS kernel and the
     slot-order traceback walk (ops/rotated.py, ops/chainback.py);
-  * 4096 < S <= 65536 (K = 14..17): the plane ACS kernel and the plane
-    walks, exact or truncated (ops/plane.py);
+  * S > 4096 (K >= 14): the plane ACS kernels (a block or a cluster of
+    blocks up to K=19, global-memory metrics above) and the plane walks,
+    exact or truncated (ops/plane.py);
   * S <= 32 (K = 2..6): the lane ACS kernel and the state-order walk
-    (ops/lane.py, ops/chainback.py);
-  * otherwise (S > 65536): the plain state-order scan
-    (ops/torch_core.py) on the CPU; on a CUDA device
-    ``NotImplementedError``, because one frame's metrics no longer fit
-    the shared memory of a cluster of two blocks.
+    (ops/lane.py, ops/chainback.py).
 
 The kernel backends launch CUDA kernels on a CUDA device and run their
 plain versions on the CPU.  The kernels take rates up to 1/16: on a
@@ -136,8 +133,7 @@ def select_backend(spec: torch_core.StaticSpec, device: torch.device,
                    backend: str = "auto") -> str:
     """Resolve ``backend`` for a spec on a device (routing by state count,
     see the module docstring); raises for a named backend outside its
-    class and, on a CUDA device, for S > 65536 and for a kernel backend
-    at R > 16."""
+    class and, on a CUDA device, for a kernel backend at R > 16."""
     S = spec.S
     if device.type == "cuda" and spec.R > torch_core.KERNEL_MAX_RATE \
             and backend in ("auto", "rotated", "plane", "lane"):
@@ -148,20 +144,10 @@ def select_backend(spec: torch_core.StaticSpec, device: torch.device,
             f"(the plain scan, on the card or the CPU)")
     in_class = rotated.ROTATED_MIN_STATES <= S <= torch_core.MAX_LANE_STATES
     if backend == "auto":
+        # S = 2^(K-1): the three classes cover every K >= 2
         if in_class:
             return "rotated"
-        if plane.supports(spec):
-            return "plane"
-        if lane.supports(spec):
-            return "lane"
-        if device.type == "cpu":
-            return "torch"
-        raise NotImplementedError(
-            f"no CUDA kernel for S={S}: the plane ACS kernel keeps one "
-            f"frame's int32 metrics in the shared memory of a block or a "
-            f"cluster of two (227 KB each), which bounds it to S <= "
-            f"{plane.MAX_PLANE_STATES}; see ROADMAP.md queue 3. The CPU "
-            f"runs the plain scan")
+        return "plane" if plane.supports(spec) else "lane"
     if backend not in BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
     if backend == "rotated" and not in_class:
@@ -170,8 +156,7 @@ def select_backend(spec: torch_core.StaticSpec, device: torch.device,
                          f"{torch_core.MAX_LANE_STATES}, got S={S}")
     if backend == "plane" and not plane.supports(spec):
         raise ValueError(f"the plane backend covers "
-                         f"{torch_core.MAX_LANE_STATES} < S <= "
-                         f"{plane.MAX_PLANE_STATES}, got S={S}")
+                         f"S > {torch_core.MAX_LANE_STATES}, got S={S}")
     if backend == "lane" and not lane.supports(spec):
         raise ValueError(f"the lane backend covers S <= "
                          f"{lane.MAX_LANE_KERNEL_STATES}, got S={S}")
@@ -190,16 +175,14 @@ class ViterbiDecoder:
     ``backend``:
       * ``"rotated"`` - rotated ACS + slot-order walk (64 <= S <= 4096):
         the CUDA kernels on a CUDA device, their plain versions on the CPU.
-      * ``"plane"``   - plane ACS + plane walks (4096 < S <= 65536), the
-        same way.
+      * ``"plane"``   - plane ACS + plane walks (S > 4096), the same
+        way.
       * ``"lane"``    - lane ACS + state-order walk (S <= 32), the same
         way.
       * ``"torch"``   - the plain state-order scan, on any device (and
         the rotated-layout scan of ops/bigstate.py for ``decode`` with
         S > 4096).
-      * ``"auto"``    - ``"rotated"``, ``"plane"`` or ``"lane"`` where S
-        allows it; else ``"torch"`` on the CPU and
-        ``NotImplementedError`` on a CUDA device.
+      * ``"auto"``    - ``"rotated"``, ``"plane"`` or ``"lane"`` by S.
 
     Input contract: soft symbols lie in [soft_decision_low,
     soft_decision_high]; the decoder clamps inputs to that range

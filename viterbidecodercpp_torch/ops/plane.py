@@ -18,9 +18,9 @@ records each chunk's rotations in ``DecoderState.row_rots``.
 
 Public functions, each with the contract of its JAX namesake:
 
-  * :func:`acs_plane` (kernel ``csrc/plane_acs.cu``, fed the
-    branch-pattern table of ``_plane_patterns``), plain version
-    :func:`acs_plane_ref`;
+  * :func:`acs_plane` (kernel ``csrc/plane_acs.cu`` up to K=19 and
+    ``csrc/plane_acs_global.cu`` above, both fed the branch-pattern table
+    of ``_plane_patterns``), plain version :func:`acs_plane_ref`;
   * :func:`walk_plane_frames` (kernel ``csrc/plane_walk.cu``), plain
     version :func:`walk_plane_frames_ref`, and :func:`chainback_plane`
     on top of it;
@@ -42,6 +42,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import sys
 from typing import Optional, Tuple
 
 import numpy as np
@@ -51,31 +52,48 @@ from . import rotated
 from .torch_core import (KERNEL_MAX_RATE, MAX_LANE_STATES, StaticSpec,
                          symmetric_amplitude, wrap_int32)
 
-__all__ = ["supports", "time_block_rows", "acs_plane", "acs_plane_ref",
-           "walk_plane", "walk_plane_frames", "walk_plane_frames_ref",
-           "chainback_plane", "chainback_plane_truncated",
-           "chainback_plane_truncated_ref", "decode_big_plane",
-           "MAX_PLANE_STATES", "LAUNCHES"]
+__all__ = ["supports", "acs_kernel", "time_block_rows", "acs_plane",
+           "acs_plane_ref", "walk_plane", "walk_plane_frames",
+           "walk_plane_frames_ref", "chainback_plane",
+           "chainback_plane_truncated", "chainback_plane_truncated_ref",
+           "decode_big_plane", "MAX_CLUSTER_STATES", "LAUNCHES",
+           "ACTIVE_CLUSTERS"]
 
 COLS = 128          # lanes per plane row
 LANE_BITS = 7
 WALK_SLAB = 8       # the truncated walk's block and overlap are multiples
 
-# The ACS kernel keeps one frame's int32 metrics in shared memory: up to
-# S = 32768 (K=16, 128 KB) in one block, S = 65536 (K=17, 256 KB) split
-# over a cluster of two; K=18 would need 512 KB.
-MAX_PLANE_STATES = 65536
+# The ACS kernels by state count.  csrc/plane_acs.cu keeps one frame's
+# int32 metrics in shared memory: one block up to S = 32768 (K=16,
+# 128 KB), a cluster of S / 32768 blocks (2, 4 or 8) up to S = 262144
+# (K=19, 1 MB).  csrc/plane_acs_global.cu keeps them in global memory, one
+# launch a trellis step, above that (its C entry refuses K > 31).
+MAX_CLUSTER_STATES = 1 << 18
 
 # Kernel launches by the public wrappers (reset and read by chip_smoke.py).
-LAUNCHES = {"plane_acs": 0, "plane_walk": 0, "plane_walk_trunc": 0}
+LAUNCHES = {"plane_acs": 0, "plane_acs_global": 0, "plane_walk": 0,
+            "plane_walk_trunc": 0}
+# cudaOccupancyMaxActiveClusters of each cluster configuration the ACS has
+# launched, keyed (device index, K, R, saturating); queried before its
+# first launch
+ACTIVE_CLUSTERS: dict = {}
 
 
 def supports(spec: StaticSpec) -> bool:
     """True for the plane class: S > 4096 with whole 32-row word rows
-    (the JAX gate), up to the CUDA kernel's bound MAX_PLANE_STATES."""
+    (the JAX gate, with no upper bound)."""
     if spec.S <= MAX_LANE_STATES or spec.S % COLS:
         return False
-    return (spec.S // COLS) // 32 >= 1 and spec.S <= MAX_PLANE_STATES
+    return (spec.S // COLS) // 32 >= 1
+
+
+def acs_kernel(spec: StaticSpec) -> str:
+    """The CUDA ACS kernel that serves ``spec`` (by K alone):
+    ``"plane_acs"`` (a block or a cluster, K <= 19) or
+    ``"plane_acs_global"`` (K >= 20)."""
+    _check_spec(spec)
+    return "plane_acs" if spec.S <= MAX_CLUSTER_STATES else \
+        "plane_acs_global"
 
 
 def time_block_rows(spec: StaticSpec) -> int:
@@ -90,11 +108,14 @@ def _word_rows(spec: StaticSpec) -> int:
 
 def _check_spec(spec: StaticSpec) -> None:
     if not supports(spec):
-        raise ValueError(f"the plane kernels cover {MAX_LANE_STATES} < S <= "
-                         f"{MAX_PLANE_STATES}, got S={spec.S}")
+        raise ValueError(f"the plane class covers S > {MAX_LANE_STATES}, "
+                         f"got S={spec.S}")
 
 
-def _launch(name: str, symbol: str, argtypes, *args) -> None:
+def _launch(name: str, symbol: str, argtypes, *args,
+            launched: Optional[ctypes.c_int] = None) -> None:
+    """Call ``symbol``, which launches one kernel, or as many as it
+    writes to ``launched``, and count them in LAUNCHES[name]."""
     from . import _build
 
     fn = getattr(_build.load(name), symbol)
@@ -103,7 +124,35 @@ def _launch(name: str, symbol: str, argtypes, *args) -> None:
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+    LAUNCHES[name] += 1 if launched is None else launched.value
+
+
+def _check_clusters(spec: StaticSpec, dev: torch.device) -> None:
+    """Before the first launch of a cluster configuration (K >= 17) on a
+    card: query cudaOccupancyMaxActiveClusters, print it and raise if the
+    card can place none."""
+    key = (dev.index, spec.K, spec.R, bool(spec.saturating))
+    if spec.S <= 1 << 15 or key in ACTIVE_CLUSTERS:
+        return
+    from . import _build
+
+    fn = _build.load("plane_acs").vdt_plane_acs_clusters
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    out = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        err = fn(spec.K, spec.R, int(spec.saturating), ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"plane_acs cluster query failed: CUDA error {err}")
+    blocks = spec.S >> 15
+    print(f"plane_acs: K={spec.K} R={spec.R} on cuda:{dev.index}: clusters "
+          f"of {blocks} blocks, cudaOccupancyMaxActiveClusters = "
+          f"{out.value}", file=sys.stderr, flush=True)
+    if out.value == 0:
+        raise RuntimeError(f"the card places no cluster of {blocks} "
+                           f"1024-thread blocks with 128 KB of shared "
+                           f"memory each (K={spec.K})")
+    ACTIVE_CLUSTERS[key] = out.value
 
 
 def _check_cuda(**tensors) -> None:
@@ -200,6 +249,13 @@ def _plane_patterns(spec: StaticSpec) -> np.ndarray:
     return kpat
 
 
+@functools.lru_cache(maxsize=16)
+def _device_patterns(spec: StaticSpec, dev: torch.device) -> torch.Tensor:
+    """:func:`_plane_patterns` on the card, for the global-metric kernel
+    (its (n, 32) table outgrows a kernel's parameters at large n)."""
+    return torch.as_tensor(_plane_patterns(spec), device=dev)
+
+
 def acs_plane_ref(spec: StaticSpec, metrics: torch.Tensor,
                   symbols: torch.Tensor, *, phase0: int = 0,
                   out: Optional[torch.Tensor] = None, row0: int = 0
@@ -223,8 +279,10 @@ def acs_plane(spec: StaticSpec, metrics: torch.Tensor, symbols: torch.Tensor,
     ``out`` (B, rows, WRr, 128) int32 the rows go to out[:, row0:row0+T]
     and ``packed`` is that view; rows outside it are not touched.
 
-    CPU tensors take the plain version; CUDA tensors launch
-    ``csrc/plane_acs.cu`` or raise.
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    of :func:`acs_kernel` - ``csrc/plane_acs.cu`` up to K=19 (a cluster
+    of S/32768 blocks from K=17), ``csrc/plane_acs_global.cu`` above -
+    or raise.
     """
     B, T, symbols, out = _acs_args(spec, metrics, symbols, out, row0)
     phase0 = int(phase0) % (spec.K - 1)
@@ -236,22 +294,40 @@ def acs_plane(spec: StaticSpec, metrics: torch.Tensor, symbols: torch.Tensor,
                          f"got R={spec.R}")
     if B == 0:
         raise ValueError("empty batch")
+    dev = metrics.device
     symbols = symbols.contiguous()
     g = (ctypes.c_int * spec.R)(*rotated._gmask(spec))
-    kpat = _plane_patterns(spec)
     m_out = torch.empty_like(metrics)
-    acc = torch.empty(B, dtype=torch.int32, device=metrics.device)
-    _launch("plane_acs", "vdt_plane_acs",
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-            + [ctypes.c_void_p] * 2
-            + [ctypes.c_int] * 9 + [ctypes.c_void_p],
-            metrics.data_ptr(), symbols.data_ptr(), m_out.data_ptr(),
-            out.data_ptr(), acc.data_ptr(), B, T, spec.K, spec.R,
-            ctypes.cast(g, ctypes.c_void_p), kpat.ctypes.data, spec.soft_high,
-            spec.soft_low, spec.max_error, spec.metric_max,
+    acc = torch.empty(B, dtype=torch.int32, device=dev)
+    tail = (spec.soft_high, spec.soft_low, spec.max_error, spec.metric_max,
             spec.renorm_threshold, int(spec.saturating), phase0,
-            out.shape[1], row0,
-            _stream(metrics.device))
+            out.shape[1], row0, _stream(dev))
+    if acs_kernel(spec) == "plane_acs":
+        _check_clusters(spec, dev)
+        _launch("plane_acs", "vdt_plane_acs",
+                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
+                + [ctypes.c_void_p] * 2
+                + [ctypes.c_int] * 9 + [ctypes.c_void_p],
+                metrics.data_ptr(), symbols.data_ptr(), m_out.data_ptr(),
+                out.data_ptr(), acc.data_ptr(), B, T, spec.K, spec.R,
+                ctypes.cast(g, ctypes.c_void_p),
+                _plane_patterns(spec).ctypes.data, *tail)
+    else:
+        # the two metric buffers and the renorm cells (mins and slot-0
+        # values of three steps, the totals)
+        scratch = torch.empty(2 * B * spec.S + 7 * B, dtype=torch.int32,
+                              device=dev)
+        # an init launch, one a trellis step and a finish
+        launched = ctypes.c_int(0)
+        _launch("plane_acs_global", "vdt_plane_acs_global",
+                [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+                + [ctypes.c_void_p] + [ctypes.c_int] * 9
+                + [ctypes.c_void_p] * 2,
+                metrics.data_ptr(), symbols.data_ptr(), m_out.data_ptr(),
+                out.data_ptr(), acc.data_ptr(), scratch.data_ptr(),
+                _device_patterns(spec, dev).data_ptr(), B, T, spec.K, spec.R,
+                ctypes.cast(g, ctypes.c_void_p), *tail,
+                ctypes.byref(launched), launched=launched)
     return m_out, out[:, row0:row0 + T], acc
 
 

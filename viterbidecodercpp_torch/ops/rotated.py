@@ -124,7 +124,8 @@ def slot_scan(spec: StaticSpec, metrics: torch.Tensor,
     n = spec.K - 1
     S = spec.S
     device = metrics.device
-    slot_bt = torch.as_tensor(_slot_bt(spec), device=device)   # (n, R, S)
+    bt = torch.as_tensor(np.asarray(spec.bt, dtype=np.int32),
+                         device=device)                         # (R, S/2)
     pos = torch.arange(S, device=device)
     sym = symbols.to(torch.int32)
     perm_in = torch.as_tensor(_rotr(np.arange(S), -phase0, n), device=device)
@@ -136,7 +137,10 @@ def slot_scan(spec: StaticSpec, metrics: torch.Tensor,
         dist = 1 << ((n - 1 - phi) % n)
         odd = ((pos & dist) != 0)[:, None]                     # (S, 1)
         partner = m[pos ^ dist]
-        bm = (slot_bt[phi][:, :, None] - sym[:, t, :].t()[:, None, :]).abs()
+        # the step's (R, S) rows of _slot_bt, made on the device (the
+        # whole (n, R, S) table is 0.5 GB at K=21 R=6)
+        slot_bt = bt[:, _rotr(pos & ~dist, -phi, n)]
+        bm = (slot_bt[:, :, None] - sym[:, t, :].t()[:, None, :]).abs()
         bm = bm.sum(dim=0, dtype=torch.int32)                 # (S, B)
         e_self = m + bm
         e_part = partner + (spec.max_error - bm)

@@ -5,9 +5,8 @@ torch ops over a Python loop on T, batched over frames, on any device.
 It is the port's executable specification in *state order* - the
 ``ViterbiDecisionBits`` layout - and so an independent second reference
 beside the rotated and plane kernels, whose layouts and schedules
-differ.  The decoder uses it as ``backend="torch"`` (and for S < 64 and
-S > 65536 on the CPU); ``backend="auto"`` never picks it on a CUDA
-device.
+differ.  The decoder uses it as ``backend="torch"``;
+``backend="auto"`` never picks it.
 
 Conventions shared with the JAX package (so tests compare like with
 like):

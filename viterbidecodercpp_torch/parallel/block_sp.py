@@ -20,7 +20,7 @@ Boundary semantics are the JAX package's:
 
 Routes, as the JAX package picks them with ``use_pallas`` (here by
 ``decoder.select_backend``):
-  * plane (4096 < S <= 65536): plane ACS (``phase0=0``) over the extended
+  * plane (S > 4096): plane ACS (``phase0=0``) over the extended
     tile, plane walk with ``rots`` and, on the last tile, ``valid``;
   * rotated (64 <= S <= 4096): rotated ACS, slot-order walk with ``rots``
     and ``valid``;

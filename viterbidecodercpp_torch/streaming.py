@@ -11,7 +11,7 @@ equals the exact decode on clean-enough channels.
 
 Routes are the decoder's (``decoder.select_backend``): ``"rotated"``
 (64 <= S <= 4096; rotated ACS, slot-order ring, slot-order walk),
-``"plane"`` (4096 < S <= 65536; plane ACS, (B, window, W/128, 128) ring,
+``"plane"`` (S > 4096; plane ACS, (B, window, W/128, 128) ring,
 frame-major plane walk), ``"lane"`` (S <= 32; lane ACS, state-order ring,
 state-order walk) and ``"torch"`` (the plain state-order scan and walk,
 on any device).  Every push restarts the ACS schedule at phase 0 and the
