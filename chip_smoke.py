@@ -44,12 +44,15 @@ Phases, in order; any failure raises and exits non-zero:
    on the B=100 rows the state-order walk kernel.
 2d. The plane ACS past K=17: random K=18 and K=19 codes (clusters of
    four and eight blocks; cudaOccupancyMaxActiveClusters printed) and
-   K=20 and K=21 codes (the global-metric kernel), at R=2 and R=6, both
+   K=20, 21 and 22 codes (the persistent global-metric kernel; its
+   resident blocks, grid and tiles a block printed), at R=2 and R=6, both
    arithmetic modes, at (B, T) = (1, 1) from the reset metrics, (1, n-1)
    from random metrics near metric_max and (3, 2n+3) from both, at
    phase0 != 0, the B=3 calls into an ``out`` buffer at ``row0=2``
-   (metrics, words, acc, the whole buffer); on the B=3 rows the exact
-   and the truncated walk.
+   (metrics, words, acc, the whole buffer); then K=23 at B=3, T=2n+3
+   from both starts, more tiles than the card's resident blocks, so
+   each block steps several; on the B=3 rows the exact and the
+   truncated walk.
 3. The flagship path at full size: Voyager K=7 R=1/2 SOFT8, B=1024
    frames x 2048 trellis steps (2042 random data bits + 6 tail bits per
    frame), encoded on the card, mild numpy noise, decoded by
@@ -94,8 +97,10 @@ Phases, in order; any failure raises and exits non-zero:
    symbols/s (B*chunk*R / s).
 4e. The two plane ACS routes past K=17 beside their bounds: the cluster
    kernel at K=18 (B=64 x 2065 steps) and K=19 (B=16 x 530), the
-   global-metric kernel at K=20 and K=21 (B=4 x 531 and 532), kernel and
-   plain time, time a trellis step, bound and share.
+   global-metric kernel at K=20 and K=21 (B=4 x 531 and 532; its grid,
+   tiles a block and resident blocks), kernel and plain time, time a
+   trellis step, bound and share, the call's kernels' device time and
+   the host's time to enqueue the call.
 4d. The BER loop's times (``ber.measure_point``): Voyager SOFT8, 2048-bit
    blocks, 6 dB (no error stop fires), 256 batches of 256 frames and 64
    of 1024: decoded data bits/s (median of three points, host clock),
@@ -163,7 +168,7 @@ Phases, in order; any failure raises and exits non-zero:
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is a JSON object with one entry per kernel (kernel launches on the main
-paths: the global plane ACS launches T + 2 a call, the others one;
+paths: one a call, the global plane ACS's persistent kernel too;
 largest difference from the plain version, ms, plain_ms, bound_ms,
 bound_by, bound_share, library_ms), the decode and stream times and the
 BER loop's, phase 6's results and times and phase 7's counts and
@@ -236,12 +241,16 @@ PLANE_RANDOM = ((14, 2, "SOFT8", "saturating"),
                 (14, 11, "HARD8", "saturating"),
                 (17, 6, "SOFT16", "saturating"))
 # phase 2d's codes past K=17: the cluster kernel's 4 and 8 blocks (K=18,
-# 19) and the global-metric kernel (K=20, 21), at R=2 and Cassini's R=6
-BIG_PLANE_K = (18, 19, 20, 21)
+# 19) and the global-metric kernel (K=20, 21, 22), at R=2 and Cassini's R=6
+BIG_PLANE_K = (18, 19, 20, 21, 22)
 BIG_PLANE_R = (2, 6)
 # each spec's calls: (B, T as an index into (1, n-1, 2n+3), start)
 BIG_PLANE_CALLS = ((1, 0, "reset"), (1, 1, "near max"), (3, 2, "reset"),
                    (3, 2, "near max"))
+# and K=23 at B=3: 1536 tiles of the global kernel, more than the blocks
+# an H100 holds at once (at most 8 an SM), so each block steps several
+MULTI_TILE_K = 23
+MULTI_TILE_CALLS = ((3, 2, "reset"), (3, 2, "near max"))
 # phase 3e: K >= 18 at full width.  The K=18 code (taps set at both
 # ends), SOFT16, B=64 x 2048 data bits (the cluster of four blocks; the
 # first frames held to the plain versions), its stream, and the wider
@@ -579,19 +588,20 @@ def phase2b(pt, torch_core, plane, dev, rng) -> dict:
 
 def phase2d(pt, torch_core, plane, dev, rng) -> dict:
     """The plane ACS past K=17 against its plain version, tolerance 0:
-    K = 18..21 (clusters of 4 and 8 blocks, then global metrics) x R in
+    K = 18..22 (clusters of 4 and 8 blocks, then global metrics) x R in
     BIG_PLANE_R x both arithmetic modes, each at BIG_PLANE_CALLS ((B, T)
     with B in {1, 3}, T in {1, n-1, 2n+3}, from the reset metrics or from
     random metrics near metric_max: the renorm gate fires from the first
     step, and the frame minimum lies in any block), at phase0 != 0, the B=3
-    calls into an ``out`` buffer at ``row0=2``; on the last call's rows
-    (B=3, T=2n+3) both walks.  Returns the largest difference seen per
-    kernel."""
+    calls into an ``out`` buffer at ``row0=2``; K = MULTI_TILE_K at
+    MULTI_TILE_CALLS, where the global kernel's blocks step several tiles
+    each (required); on the last call's rows (B=3, T=2n+3) both walks.
+    Returns the largest difference seen per kernel."""
     err = {"plane_acs": 0, "plane_acs_global": 0, "plane_walk": 0,
            "plane_walk_trunc": 0}
     calls = 0
     t0 = time.perf_counter()
-    for K in BIG_PLANE_K:
+    for K in (*BIG_PLANE_K, MULTI_TILE_K):
         n = K - 1
         for R in BIG_PLANE_R:
             code = random_code(pt, K, rng, R)
@@ -602,7 +612,8 @@ def phase2d(pt, torch_core, plane, dev, rng) -> dict:
                                                arith=arith))
                 kernel = plane.acs_kernel(spec)
                 label = f"K={K} R={R} {mode} {arith} ({kernel})"
-                for Bs, Tn, start in BIG_PLANE_CALLS:
+                for Bs, Tn, start in (MULTI_TILE_CALLS if K == MULTI_TILE_K
+                                      else BIG_PLANE_CALLS):
                     Ts = (1, n - 1, 2 * n + 3)[Tn]
                     syms = torch.as_tensor(rng.randint(
                         spec.soft_low - 2, spec.soft_high + 3,
@@ -641,6 +652,12 @@ def phase2d(pt, torch_core, plane, dev, rng) -> dict:
                     require(e == 0, f"plane ACS kernel != plain for "
                                     f"{label} from {start} B={Bs} "
                                     f"T={Ts} phase0={phase0}")
+                if K == MULTI_TILE_K:
+                    _, per = plane.global_grid(
+                        spec.S, Bs, plane.RESIDENT_BLOCKS[
+                            (dev.index, K, R, arith == "saturating")])
+                    require(per > 1, f"K={K} B={Bs}: the global kernel's "
+                                     f"blocks took one tile each")
                 # both walks over the last call's rows (B=3, T=2n+3)
                 rows = got[1].contiguous()
                 T = rows.shape[1]
@@ -669,11 +686,14 @@ def phase2d(pt, torch_core, plane, dev, rng) -> dict:
     print(f"phase2d ok: the plane ACS past K=17, {calls} calls (K in "
           f"{BIG_PLANE_K}, R in {BIG_PLANE_R}, saturating and wrapping, "
           f"(B, T, start) in B=1 T=1 reset, B=1 T=n-1 near metric_max, B=3 "
-          f"T=2n+3 from both, phase0 != 0, B=3 into out[:, 2:2+T]) == plain "
-          f"bit-for-bit (metrics, words, acc); clusters of 4 and 8 blocks "
-          f"(K=18, 19: cudaOccupancyMaxActiveClusters "
-          f"{sorted(set(plane.ACTIVE_CLUSTERS.items()))}) and the "
-          f"global-metric kernel (K=20, 21); both walks over the B=3 rows "
+          f"T=2n+3 from both, phase0 != 0, B=3 into out[:, 2:2+T]; "
+          f"K={MULTI_TILE_K} B=3 T=2n+3 from both, several tiles a block) "
+          f"== plain bit-for-bit (metrics, words, acc); clusters of 4 and "
+          f"8 blocks (K=18, 19: cudaOccupancyMaxActiveClusters "
+          f"{sorted(set(plane.ACTIVE_CLUSTERS.items()))}) and the persistent "
+          f"global-metric kernel (K >= 20: resident blocks "
+          f"{sorted(set(plane.RESIDENT_BLOCKS.items()))}); both walks over "
+          f"the B=3 rows "
           f"== plain ({time.perf_counter() - t0:.1f} s)", flush=True)
     return err
 
@@ -1091,8 +1111,9 @@ def phase4e(pt, dev, rng, card: str) -> dict:
     time at each BIG_TIMES shape (random symbols, reset metrics), its
     time a trellis step and its share of the bound, and what bounds the
     call: its kernels' device time (torch.profiler) and the host's time
-    to enqueue it.  Returns, per shape, the numbers the JSON line
-    reports."""
+    to enqueue it; for the global kernel its grid, tiles a block and the
+    blocks the card holds at once.  Returns, per shape, the numbers the
+    JSON line reports."""
     from viterbidecodercpp_torch.ops import plane, torch_core
     out = {}
     for K, B, N in BIG_TIMES:
@@ -1119,10 +1140,18 @@ def phase4e(pt, dev, rng, card: str) -> dict:
         # one call: the plain versions take seconds here
         plain = time_ms(lambda: plane.acs_plane_ref(spec, m0, sy), 1, 0)
         bms, by = acs_bound(spec.S, B, T, code.R, spec.W)
-        layout = (f"a cluster of {spec.S >> 15} blocks a frame"
-                  if kernel == "plane_acs" else
-                  f"{spec.S >> 13} blocks of 256 threads a frame, a launch "
-                  f"a step")
+        grid = {}
+        if kernel == "plane_acs":
+            layout = f"a cluster of {spec.S >> 15} blocks a frame"
+        else:
+            resident = plane.RESIDENT_BLOCKS[(dev.index, K, code.R,
+                                              spec.saturating)]
+            blocks, per = plane.global_grid(spec.S, B, resident)
+            grid = {"grid": blocks, "tiles_per_block": per,
+                    "resident_blocks": resident}
+            layout = (f"one persistent kernel a call: grid {blocks} of "
+                      f"{resident} resident blocks, {per} tiles of "
+                      f"{plane.GLOBAL_TILE} slots a block")
         print(f"phase4e {kernel} K={K} ({layout}) "
               f"SOFT16 B={B} T={T}: kernel {ms:.4f} ms (median of {REPS}; "
               f"{ms / T * 1e3:.3f} us a step), plain {plain:.4f} ms (one "
@@ -1133,7 +1162,8 @@ def phase4e(pt, dev, rng, card: str) -> dict:
         out[f"K={K}"] = {"kernel": kernel, "B": B, "T": T, "ms": ms,
                          "us_a_step": ms / T * 1e3, "plain_ms": plain,
                          "device_busy_ms": busy, "enqueue_ms": enqueue,
-                         "bound_ms": bms, "bound_by": by, "max_abs_err": e}
+                         "bound_ms": bms, "bound_by": by, "max_abs_err": e,
+                         **grid}
         del m0, sy
         torch.cuda.empty_cache()
     return out

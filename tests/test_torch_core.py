@@ -126,3 +126,27 @@ def test_short_history_raises():
     with pytest.raises(ValueError, match="shorter"):
         torch_core.chainback_scan(ts, packed, torch.zeros(1, dtype=torch.int32),
                                   5)
+
+
+def test_spec_cache_keys_on_the_spec_object_and_args():
+    """spec_cache computes once per spec object and argument tuple: an
+    equal spec made anew is computed again (no field-by-field compare of
+    its branch table), the same object is not, and each entry keeps its
+    spec alive."""
+    calls = []
+
+    @torch_core.spec_cache
+    def tag(spec, *args):
+        calls.append(args)
+        return (spec.K, args, len(calls))
+
+    cfg = pt.get_decode_config(pt.DecodeType.SOFT8, 2)
+    a = torch_core.make_static_spec(pt.get_code("Voyager"), cfg)
+    b = torch_core.make_static_spec(pt.get_code("Voyager"), cfg)
+    assert a == b and a is not b
+    assert tag(a) == (7, (), 1) and tag(a) == (7, (), 1)
+    assert tag(b) == (7, (), 2)
+    assert tag(a, "cpu") == (7, ("cpu",), 3) and tag(a, "cpu")[2] == 3
+    assert calls == [(), (), ("cpu",)]
+    assert torch_core.symmetric_amplitude(a) == \
+        torch_core.symmetric_amplitude(b)

@@ -44,8 +44,12 @@ With ``--path plane`` (the big-state path, Cassini K=15 R=1/6 SOFT16) it
   (clusters of 2, 4 and 8 blocks a frame), SOFT16, T=2064, at one frame,
   a full card and (K=17) two waves; checked equal; a code the earlier
   tree refuses is timed on this tree alone;
+* times both trees' global-metric plane ACS (K >= 20) in turns at
+  ``GLOBAL_SHAPES`` (K=20 B=4 T=531 and K=21 B=4 T=532, chip_smoke.py
+  phase 4e's codes, and K=23 B=3 T=67, where a block steps several
+  tiles), checked equal, with the host's time to enqueue one call;
 * prints ptxas's register and spill counts of both trees' plane_acs.cu,
-  plane_walk.cu and plane_walk_trunc.cu.
+  plane_acs_global.cu, plane_walk.cu and plane_walk_trunc.cu.
 
 With ``--path lane`` (the lane path, Basic K=5 R=1/2 SOFT16) it
 
@@ -89,7 +93,8 @@ import viterbidecodercpp_torch as this  # noqa: E402
 import viterbidecodercpp_torch.ops._build  # noqa: E402,F401 (this.ops._build)
 
 SOURCES = {"rotated": ("rotated_acs", "chainback"),
-           "plane": ("plane_acs", "plane_walk", "plane_walk_trunc"),
+           "plane": ("plane_acs", "plane_acs_global", "plane_walk",
+                     "plane_walk_trunc"),
            "lane": ("lane_acs", "chainback")}
 SWEEP_B = (1, 32, 132, 264, 528, 1024, 2048, 4096)
 PLANE_SWEEP_B = (1, 132, 264, 265, 512)
@@ -98,6 +103,10 @@ WALK_SWEEP_K = (14, 16, 17)
 # (K, B): 66, 30 and 15 clusters of 2, 4 and 8 blocks fill an H100
 CLUSTER_SWEEP = ((17, 1), (17, 66), (17, 132), (18, 1), (18, 64), (19, 1),
                  (19, 16))
+# (K, B, T) of the global-metric plane ACS, the codes of chip_smoke.py's
+# phase 4e (taps BIG_TAPS)
+GLOBAL_SHAPES = ((20, 4, 531), (21, 4, 532), (23, 3, 67))
+BIG_TAPS = (0o12345, 0o7651)
 TURNS = ("earlier", "this", "this", "earlier")
 
 
@@ -261,7 +270,41 @@ def plane_ab(pk: dict, rng) -> dict:
         print(f"plane sweep: {json.dumps(sweep[-1])}", flush=True)
     res["plane_acs_batch_sweep_t2062"] = sweep
     res["plane_acs_clusters_t2064"] = cluster_sweep(pk, rng)
+    res["plane_acs_global"] = global_sweep(pk, rng)
     return res
+
+
+def global_sweep(pk: dict, rng) -> list:
+    """Both trees' global-metric plane ACS at each GLOBAL_SHAPES shape
+    (SOFT16, random symbols, reset metrics), in turns, checked equal, and
+    the host's time to enqueue one call of each (median of 5)."""
+    out = []
+    for K, b, T in GLOBAL_SHAPES:
+        G = tuple((1 << (K - 1)) | g for g in BIG_TAPS)
+        sk = {w: spec_of(p, p.CodeSpec(f"K={K}", K, G), "SOFT16")
+              for w, p in pk.items()}
+        sy = torch.as_tensor(rng.randint(-127, 128, (b, T, 2))
+                             .astype(np.int32), device="cuda")
+        m0 = this.ops.torch_core.initial_metrics(sk["this"], b, 0, "cuda")
+        fb = {w: (lambda p=p, s=sk[w]: p.ops.plane.acs_plane(s, m0, sy))
+              for w, p in pk.items()}
+        same(fb["this"](), fb["earlier"](), f"K={K} global plane ACS B={b}")
+        enqueue = {}
+        for w, f in fb.items():
+            ts = []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                f()
+                ts.append((time.perf_counter() - t0) * 1e3)
+            enqueue[w] = statistics.median(ts)
+        torch.cuda.synchronize()
+        out.append({"K": K, "B": b, "T": T,
+                    **{f"{w}_ms": v for w, v in in_turns(fb).items()},
+                    **{f"{w}_enqueue_ms": v for w, v in enqueue.items()}})
+        print(f"global sweep: {json.dumps(out[-1])}", flush=True)
+        del sy, m0
+    return out
 
 
 def cluster_sweep(pk: dict, rng) -> list:

@@ -20,7 +20,8 @@ Public functions, each with the contract of its JAX namesake:
 
   * :func:`acs_plane` (kernel ``csrc/plane_acs.cu`` up to K=19 and
     ``csrc/plane_acs_global.cu`` above, both fed the branch-pattern table
-    of ``_plane_patterns``), plain version :func:`acs_plane_ref`;
+    of ``_plane_patterns``; the latter's grid from :func:`global_grid`),
+    plain version :func:`acs_plane_ref`;
   * :func:`walk_plane_frames` (kernel ``csrc/plane_walk.cu``), plain
     version :func:`walk_plane_frames_ref`, and :func:`chainback_plane`
     on top of it;
@@ -41,7 +42,6 @@ let the ACS write its rows straight into a caller's buffer.
 from __future__ import annotations
 
 import ctypes
-import functools
 import sys
 from typing import Optional, Tuple
 
@@ -50,14 +50,14 @@ import torch
 
 from . import rotated
 from .torch_core import (KERNEL_MAX_RATE, MAX_LANE_STATES, StaticSpec,
-                         symmetric_amplitude, wrap_int32)
+                         spec_cache, symmetric_amplitude, wrap_int32)
 
-__all__ = ["supports", "acs_kernel", "time_block_rows", "acs_plane",
-           "acs_plane_ref", "walk_plane", "walk_plane_frames",
+__all__ = ["supports", "acs_kernel", "time_block_rows", "global_grid",
+           "acs_plane", "acs_plane_ref", "walk_plane", "walk_plane_frames",
            "walk_plane_frames_ref", "chainback_plane",
            "chainback_plane_truncated", "chainback_plane_truncated_ref",
-           "decode_big_plane", "MAX_CLUSTER_STATES", "LAUNCHES",
-           "ACTIVE_CLUSTERS"]
+           "decode_big_plane", "MAX_CLUSTER_STATES", "GLOBAL_TILE",
+           "LAUNCHES", "ACTIVE_CLUSTERS", "RESIDENT_BLOCKS"]
 
 COLS = 128          # lanes per plane row
 LANE_BITS = 7
@@ -66,9 +66,11 @@ WALK_SLAB = 8       # the truncated walk's block and overlap are multiples
 # The ACS kernels by state count.  csrc/plane_acs.cu keeps one frame's
 # int32 metrics in shared memory: one block up to S = 32768 (K=16,
 # 128 KB), a cluster of S / 32768 blocks (2, 4 or 8) up to S = 262144
-# (K=19, 1 MB).  csrc/plane_acs_global.cu keeps them in global memory, one
-# launch a trellis step, above that (its C entry refuses K > 31).
+# (K=19, 1 MB).  csrc/plane_acs_global.cu keeps them in global memory,
+# one persistent kernel a call, above that (its C entry refuses K > 31).
 MAX_CLUSTER_STATES = 1 << 18
+# slots of one frame a block of the global-metric kernel steps at once
+GLOBAL_TILE = 1 << 13
 
 # Kernel launches by the public wrappers (reset and read by chip_smoke.py).
 LAUNCHES = {"plane_acs": 0, "plane_acs_global": 0, "plane_walk": 0,
@@ -77,6 +79,10 @@ LAUNCHES = {"plane_acs": 0, "plane_acs_global": 0, "plane_walk": 0,
 # launched, keyed (device index, K, R, saturating); queried before its
 # first launch
 ACTIVE_CLUSTERS: dict = {}
+# blocks of the global-metric kernel a card holds at once
+# (cudaOccupancyMaxActiveBlocksPerMultiprocessor x SMs), keyed (device
+# index, K, R, saturating); queried before its first launch
+RESIDENT_BLOCKS: dict = {}
 
 
 def supports(spec: StaticSpec) -> bool:
@@ -112,10 +118,9 @@ def _check_spec(spec: StaticSpec) -> None:
                          f"got S={spec.S}")
 
 
-def _launch(name: str, symbol: str, argtypes, *args,
-            launched: Optional[ctypes.c_int] = None) -> None:
-    """Call ``symbol``, which launches one kernel, or as many as it
-    writes to ``launched``, and count them in LAUNCHES[name]."""
+def _launch(name: str, symbol: str, argtypes, *args) -> None:
+    """Call ``symbol``, which launches one kernel, and count it in
+    LAUNCHES[name]."""
     from . import _build
 
     fn = getattr(_build.load(name), symbol)
@@ -124,7 +129,7 @@ def _launch(name: str, symbol: str, argtypes, *args,
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1 if launched is None else launched.value
+    LAUNCHES[name] += 1
 
 
 def _check_clusters(spec: StaticSpec, dev: torch.device) -> None:
@@ -153,6 +158,58 @@ def _check_clusters(spec: StaticSpec, dev: torch.device) -> None:
                            f"1024-thread blocks with 128 KB of shared "
                            f"memory each (K={spec.K})")
     ACTIVE_CLUSTERS[key] = out.value
+
+
+def global_grid(S: int, B: int, resident: int,
+                tile: int = GLOBAL_TILE) -> Tuple[int, int]:
+    """(grid, tiles_per_block) of the global-metric kernel for B frames
+    of S slots, cut into (S / tile) B tiles, on a card that holds
+    ``resident`` of its blocks at once.
+
+    Block g steps the tiles_per_block consecutive tiles from g *
+    tiles_per_block; tiles_per_block is the least power of two that
+    brings the grid within ``resident`` (a cooperative launch places
+    every block at once), so while it is at most S / tile a block's
+    tiles belong to one frame."""
+    if resident < 1:
+        raise RuntimeError("the card holds no block of the global-metric "
+                           "plane ACS")
+    tiles = (S // tile) * B
+    per = 1
+    while -(-tiles // per) > resident:
+        per *= 2
+    return -(-tiles // per), per
+
+
+def _check_global(spec: StaticSpec, dev: torch.device,
+                  B: int) -> Tuple[int, int]:
+    """The global-metric kernel's (grid, tiles_per_block) for B frames.
+    Before the first launch of (device, K, R, regime): query the blocks
+    the card holds at once, print them with the grid and raise if there
+    are none."""
+    key = (dev.index, spec.K, spec.R, bool(spec.saturating))
+    if key in RESIDENT_BLOCKS:
+        return global_grid(spec.S, B, RESIDENT_BLOCKS[key])
+    from . import _build
+
+    fn = _build.load("plane_acs_global").vdt_plane_acs_global_resident
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+    per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        err = fn(spec.R, int(spec.saturating), ctypes.byref(per_sm),
+                 ctypes.byref(sms))
+    if err != 0:
+        raise RuntimeError(f"plane_acs_global occupancy query failed: CUDA "
+                           f"error {err}")
+    resident = per_sm.value * sms.value
+    grid = global_grid(spec.S, B, resident)
+    print(f"plane_acs_global: K={spec.K} R={spec.R} on cuda:{dev.index}: "
+          f"{per_sm.value} blocks an SM x {sms.value} SMs = {resident} "
+          f"resident; B={B}: {(spec.S // GLOBAL_TILE) * B} tiles, grid "
+          f"{grid[0]}, {grid[1]} tiles a block", file=sys.stderr, flush=True)
+    RESIDENT_BLOCKS[key] = resident
+    return grid
 
 
 def _check_cuda(**tensors) -> None:
@@ -229,7 +286,7 @@ def _acs_plain(spec, metrics, symbols, phase0, out, row0):
     return m, out[:, row0:row0 + symbols.shape[1]], acc
 
 
-@functools.lru_cache(maxsize=64)
+@spec_cache
 def _plane_patterns(spec: StaticSpec) -> np.ndarray:
     """(n, 32) int32 register parts of the kernel's branch patterns.
 
@@ -249,7 +306,7 @@ def _plane_patterns(spec: StaticSpec) -> np.ndarray:
     return kpat
 
 
-@functools.lru_cache(maxsize=16)
+@spec_cache
 def _device_patterns(spec: StaticSpec, dev: torch.device) -> torch.Tensor:
     """:func:`_plane_patterns` on the card, for the global-metric kernel
     (its (n, 32) table outgrows a kernel's parameters at large n)."""
@@ -281,8 +338,8 @@ def acs_plane(spec: StaticSpec, metrics: torch.Tensor, symbols: torch.Tensor,
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     of :func:`acs_kernel` - ``csrc/plane_acs.cu`` up to K=19 (a cluster
-    of S/32768 blocks from K=17), ``csrc/plane_acs_global.cu`` above -
-    or raise.
+    of S/32768 blocks from K=17), ``csrc/plane_acs_global.cu`` above (one
+    cooperative launch of :func:`global_grid`'s blocks) - or raise.
     """
     B, T, symbols, out = _acs_args(spec, metrics, symbols, out, row0)
     phase0 = int(phase0) % (spec.K - 1)
@@ -313,22 +370,107 @@ def acs_plane(spec: StaticSpec, metrics: torch.Tensor, symbols: torch.Tensor,
                 ctypes.cast(g, ctypes.c_void_p),
                 _plane_patterns(spec).ctypes.data, *tail)
     else:
+        grid, per_block = _check_global(spec, dev, B)
         # the two metric buffers and the renorm cells (mins and slot-0
         # values of three steps, the totals)
         scratch = torch.empty(2 * B * spec.S + 7 * B, dtype=torch.int32,
                               device=dev)
-        # an init launch, one a trellis step and a finish
-        launched = ctypes.c_int(0)
         _launch("plane_acs_global", "vdt_plane_acs_global",
                 [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
                 + [ctypes.c_void_p] + [ctypes.c_int] * 9
-                + [ctypes.c_void_p] * 2,
+                + [ctypes.c_void_p] + [ctypes.c_int] * 2,
                 metrics.data_ptr(), symbols.data_ptr(), m_out.data_ptr(),
                 out.data_ptr(), acc.data_ptr(), scratch.data_ptr(),
                 _device_patterns(spec, dev).data_ptr(), B, T, spec.K, spec.R,
-                ctypes.cast(g, ctypes.c_void_p), *tail,
-                ctypes.byref(launched), launched=launched)
+                ctypes.cast(g, ctypes.c_void_p), *tail, grid, per_block)
     return m_out, out[:, row0:row0 + T], acc
+
+
+def _global_steps(spec: StaticSpec, metrics: torch.Tensor,
+                  symbols: torch.Tensor, *, phase0: int = 0,
+                  resident: int = 1 << 30, tile: int = GLOBAL_TILE
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """csrc/plane_acs_global.cu's schedule in plain torch, for the tests;
+    returns what :func:`acs_plane` returns.
+
+    The grid of ``global_grid(S, B, resident, tile)``; at each step every
+    block steps its tiles in order, subtracting the renorm the step
+    before left in the rotating cells (cell t-1 read, cell t folded with
+    the tiles' minima and frame b's slot-0 value, cell t+1 reset by the
+    tile that holds slot 0) before the add and the clamp; branch metrics
+    from the kernel's patterns (thread part xor ``_plane_patterns``)."""
+    B, T, symbols, packed = _acs_args(spec, metrics, symbols, None, 0)
+    n, S, R = spec.K - 1, spec.S, spec.R
+    phase0 = int(phase0) % n
+    grid, per = global_grid(S, B, resident, tile)
+    tpf = S // tile
+    top = torch.iinfo(torch.int32).max
+    q = np.arange(S)
+    buf = [metrics.to(torch.int32)[rotated._rotr(q, -phase0, n)].t()
+           .contiguous(), torch.empty((B, S), dtype=torch.int32)]
+    mins = torch.full((3, B), top, dtype=torch.int32)
+    mins[2] = 0
+    slot0s = torch.zeros((3, B), dtype=torch.int32)
+    acc = torch.zeros(B, dtype=torch.int32)
+    kpat = _plane_patterns(spec)
+    shifts = torch.arange(32, dtype=torch.int64)
+    for t in range(T):
+        phi = (phase0 + t) % n
+        dist = 1 << (n - 1 - phi)
+        tb = q & ~(31 << LANE_BITS)
+        pat = rotated._branch_pattern(spec, rotated._rotr(tb & ~dist, -phi,
+                                                          n)) \
+            ^ kpat[phi][(q >> LANE_BITS) & 31]
+        high = torch.as_tensor((pat[None, :] >> np.arange(R)[:, None]) & 1,
+                               dtype=torch.bool)                   # (R, S)
+        sv = symbols[:, t, :]
+        dl = (spec.soft_low - sv).abs()[:, :, None]
+        dh = (spec.soft_high - sv).abs()[:, :, None]
+        bm_all = torch.where(high[None], dh, dl).sum(dim=1,
+                                                     dtype=torch.int32)
+        cur, nxt = buf[t & 1], buf[(t + 1) & 1]
+        part_all = cur[:, torch.as_tensor(q ^ dist)]
+        odd_all = torch.as_tensor((q & dist) != 0)
+        cell, prev = t % 3, (t + 2) % 3
+        dbit = torch.empty((B, S), dtype=torch.bool)
+        for g in range(grid):
+            for i in range(g * per, min((g + 1) * per, tpf * B)):
+                b, lo = divmod(i, tpf)
+                qs = slice(lo * tile, (lo + 1) * tile)
+                sub = torch.where(slot0s[prev, b] >= spec.renorm_threshold,
+                                  mins[prev, b], 0).to(torch.int32)
+                bm = bm_all[b, qs]
+                e_self = cur[b, qs] - sub + bm
+                e_part = part_all[b, qs] - sub + (spec.max_error - bm)
+                if spec.saturating:
+                    e_self = torch.clamp(e_self, max=spec.metric_max)
+                    e_part = torch.clamp(e_part, max=spec.metric_max)
+                    c_lo = e_part - e_self <= 0
+                    c_hi = e_part - e_self >= 0
+                else:
+                    e_self = e_self & spec.metric_max
+                    e_part = e_part & spec.metric_max
+                    c_lo = e_self - e_part > 0
+                    c_hi = e_self - e_part < 0
+                odd = odd_all[qs]
+                ch = torch.where(odd, c_hi, c_lo)
+                nm = torch.where(ch != odd, e_part, e_self)
+                nxt[b, qs] = nm
+                dbit[b, qs] = ch
+                mins[cell, b] = torch.minimum(mins[cell, b], nm.min())
+                if lo == 0:
+                    slot0s[cell, b] = nm[0]
+                    mins[(t + 1) % 3, b] = top
+                    acc[b] += sub
+        d = dbit.to(torch.int64).reshape(B, S // 4096, 32, COLS)
+        packed[:, t] = wrap_int32((d << shifts[None, None, :, None])
+                                  .sum(dim=2))
+    fin = buf[T & 1]
+    sub = torch.where(slot0s[(T + 2) % 3] >= spec.renorm_threshold,
+                      mins[(T + 2) % 3], 0).to(torch.int32)
+    m_out = torch.empty((S, B), dtype=torch.int32)
+    m_out[rotated._rotr(q, -((phase0 + T) % n), n)] = (fin - sub[:, None]).t()
+    return m_out, packed, acc + sub
 
 
 # -- exact walks -----------------------------------------------------------

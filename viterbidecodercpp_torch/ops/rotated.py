@@ -34,7 +34,7 @@ import numpy as np
 import torch
 
 from .torch_core import (KERNEL_MAX_RATE, MAX_LANE_STATES, StaticSpec,
-                         pack_bits, rows_out)
+                         pack_bits, rows_out, spec_cache)
 
 __all__ = ["acs_rotated", "acs_rotated_ref", "slot_scan", "kernel_design",
            "ROTATED_MIN_STATES", "WARP_MAX_STATES", "WARP_MAX_RATE",
@@ -184,7 +184,7 @@ def acs_rotated_ref(spec: StaticSpec, metrics: torch.Tensor,
     return m, packed, acc
 
 
-@functools.lru_cache(maxsize=64)
+@spec_cache
 def _gmask(spec: StaticSpec) -> tuple:
     """Per-rate tap masks whose parity rebuilds ``spec.bt``:
     bt[r][h] = parity((h << 1) & g[r]) ? high : low.  Only taps 1..K-2

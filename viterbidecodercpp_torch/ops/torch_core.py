@@ -39,6 +39,7 @@ __all__ = [
     "make_static_spec",
     "initial_metrics",
     "symmetric_amplitude",
+    "spec_cache",
     "needs_big_state",
     "acs_select",
     "acs_scan",
@@ -101,7 +102,29 @@ def make_static_spec(code: CodeSpec, config: DecoderConfig) -> StaticSpec:
     )
 
 
-@functools.lru_cache(maxsize=64)
+def spec_cache(fn):
+    """Cache ``fn(spec, *args)`` by the spec's identity and ``args``.
+
+    ``functools.lru_cache`` hashes a spec and compares it with an equal
+    cached one field by field, its R x 2^(K-2) branch table too:
+    milliseconds a lookup past K=19, on every kernel call.  Each entry
+    keeps its spec alive, so no other spec takes its id while it lives."""
+    memo = {}
+
+    @functools.wraps(fn)
+    def cached(spec, *args):
+        key = (id(spec), *args)
+        hit = memo.get(key)
+        if hit is None:
+            if len(memo) >= 64:
+                memo.clear()
+            hit = memo[key] = (spec, fn(spec, *args))
+        return hit[1]
+
+    return cached
+
+
+@spec_cache
 def symmetric_amplitude(spec: StaticSpec) -> Optional[int]:
     """A when the branch table is {-A, +A}-valued, else None (cached: at
     Cassini the table has 49,152 entries and every plane ACS call asks)."""
