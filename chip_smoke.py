@@ -699,16 +699,15 @@ def phase2d(pt, torch_core, plane, dev, rng) -> dict:
 
 
 def reset_counts() -> None:
-    from viterbidecodercpp_torch.ops import chainback, lane, plane, rotated
-    rotated.LAUNCHES = chainback.LAUNCHES = lane.LAUNCHES = 0
-    for name in plane.LAUNCHES:
-        plane.LAUNCHES[name] = 0
+    from viterbidecodercpp_torch import trace
+    trace.reset_counters()
 
 
 def read_counts() -> dict:
-    from viterbidecodercpp_torch.ops import chainback, lane, plane, rotated
-    return {"rotated_acs": rotated.LAUNCHES, "chainback": chainback.LAUNCHES,
-            "lane_acs": lane.LAUNCHES, **plane.LAUNCHES}
+    """{kernel: launches since reset_counts()} of every kernel."""
+    from viterbidecodercpp_torch import trace
+    counts = trace.counters()
+    return {k: counts.get("launches." + k, 0) for k in KERNELS}
 
 
 def add_counts(launches: dict, counts: dict, kernels, what: str) -> None:

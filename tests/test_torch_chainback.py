@@ -15,6 +15,7 @@ import torch
 import jax.numpy as jnp
 
 import viterbidecodercpp_torch as pt
+from viterbidecodercpp_torch import trace
 import viterbidecodercpp_tpu as vt
 from viterbidecodercpp_torch.ops import chainback, torch_core
 from viterbidecodercpp_tpu.ops import chainback_pallas, jax_core
@@ -161,11 +162,11 @@ def test_cuda_kernel_matches_plain(cuda_device, name):
                            device=cuda_device)
     valid = torch.as_tensor((rng.rand(N) > 0.2).astype(np.int32),
                             device=cuda_device)
-    before = chainback.LAUNCHES
+    before = trace.counters().get("launches.chainback", 0)
     for kw in ({}, {"slot_order": True}, {"slot_order": True, "rots": rots},
                {"slot_order": True, "rots": rots, "valid": valid}):
         got = chainback.walk_rows(ts, packed, start, **kw)
         torch.cuda.synchronize()
         assert torch.equal(got, chainback.walk_rows_ref(ts, packed, start,
                                                         **kw))
-    assert chainback.LAUNCHES == before + 4
+    assert trace.counters()["launches.chainback"] == before + 4

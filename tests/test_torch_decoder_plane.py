@@ -18,8 +18,9 @@ import torch
 import jax.numpy as jnp
 
 import viterbidecodercpp_torch as pt
+from viterbidecodercpp_torch import trace
 import viterbidecodercpp_tpu as vt
-from viterbidecodercpp_torch.ops import encoder, plane
+from viterbidecodercpp_torch.ops import encoder
 
 NAME = "Cassini"
 
@@ -266,4 +267,4 @@ def test_cuda_decoder_matches_cpu(cuda_device):
                           overlap=ov).cpu(),
             cpu.chainback(c, total_bits, mode="truncated", block=blk,
                           overlap=ov))
-    assert plane.LAUNCHES["plane_acs"] > 0
+    assert trace.counters()["launches.plane_acs"] > 0

@@ -21,6 +21,7 @@ import torch
 import jax.numpy as jnp
 
 import viterbidecodercpp_torch as pt
+from viterbidecodercpp_torch import trace
 import viterbidecodercpp_tpu as vt
 from viterbidecodercpp_torch.ops import plane, rotated, torch_core
 from viterbidecodercpp_tpu.ops import bigstate_pallas, jax_core
@@ -200,8 +201,8 @@ def test_supports_gate_and_bounds():
         assert plane.supports(ts) and bigstate_pallas.supports(js)
         assert plane.acs_kernel(ts) == kernel
     assert plane.MAX_CLUSTER_STATES == 1 << 18
-    assert set(plane.LAUNCHES) == {"plane_acs", "plane_acs_global",
-                                   "plane_walk", "plane_walk_trunc"}
+    assert set(plane.KERNELS) == {"plane_acs", "plane_acs_global",
+                                  "plane_walk", "plane_walk_trunc"}
 
 
 def test_bad_inputs_raise():
@@ -314,7 +315,7 @@ def test_cuda_kernel_matches_plain(cuda_device, K, R, mode, arith):
     m0 = torch.as_tensor(m0, device=cuda_device)
     sy = torch.as_tensor(syms, device=cuda_device)
     kernel = plane.acs_kernel(ts)
-    before = plane.LAUNCHES[kernel]
+    before = trace.counters().get("launches." + kernel, 0)
     for phase0 in (0, 3):
         got = plane.acs_plane(ts, m0, sy, phase0=phase0)
         torch.cuda.synchronize()
@@ -322,4 +323,4 @@ def test_cuda_kernel_matches_plain(cuda_device, K, R, mode, arith):
         for g, w in zip(got, want):
             assert torch.equal(g, w)
     # one kernel a call on both routes (the global one is persistent)
-    assert plane.LAUNCHES[kernel] == before + 2
+    assert trace.counters()["launches." + kernel] == before + 2

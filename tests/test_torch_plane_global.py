@@ -23,6 +23,7 @@ import torch
 import jax.numpy as jnp
 
 import viterbidecodercpp_torch as pt
+from viterbidecodercpp_torch import trace
 import viterbidecodercpp_tpu as vt
 from viterbidecodercpp_torch.ops import plane, torch_core
 from viterbidecodercpp_tpu.ops import bigstate_pallas, jax_core
@@ -196,10 +197,10 @@ def test_cuda_global_kernel_one_launch_a_call(cuda_device, K, R, B, T,
     m0 = torch.as_tensor(m0, device=cuda_device)
     sy = torch.as_tensor(syms, device=cuda_device)
     assert plane.acs_kernel(ts) == "plane_acs_global"
-    before = plane.LAUNCHES["plane_acs_global"]
+    before = trace.counters().get("launches.plane_acs_global", 0)
     got = plane.acs_plane(ts, m0, sy, phase0=K - 3)
     torch.cuda.synchronize()
-    assert plane.LAUNCHES["plane_acs_global"] == before + 1
+    assert trace.counters()["launches.plane_acs_global"] == before + 1
     want = plane.acs_plane_ref(ts, m0, sy, phase0=K - 3)
     _equal([g.cpu() for g in got], [w.cpu() for w in want])
     resident = plane.RESIDENT_BLOCKS[(m0.device.index, K, R,

@@ -20,6 +20,7 @@ import torch
 import jax.numpy as jnp
 
 import viterbidecodercpp_torch as pt
+from viterbidecodercpp_torch import trace
 import viterbidecodercpp_tpu as vt
 from viterbidecodercpp_torch.ops import plane, torch_core
 from viterbidecodercpp_tpu.ops import bigstate_pallas, jax_core
@@ -280,7 +281,7 @@ def test_cuda_walk_kernels_match_plain(cuda_device, K):
     rots = torch.as_tensor(rng.randint(0, n, T_phys).astype(np.int32),
                            device=cuda_device)
     valid = torch.as_tensor(_edge_valid(rng, T_phys), device=cuda_device)
-    walks = dict(plane.LAUNCHES)
+    walks = trace.counters()
     calls = 0
     for Bs in (B, 1, 33):
         for N in (1, G - 1, G, G + 1, 24, T_phys):
@@ -313,6 +314,8 @@ def test_cuda_walk_kernels_match_plain(cuda_device, K):
             trunc += 1
             assert torch.equal(got, plane.chainback_plane_truncated_ref(
                 ts, pk, st, tb, r, blk, ov)), (pk.shape, blk, ov)
-    assert plane.LAUNCHES["plane_walk"] == walks["plane_walk"] + calls
-    assert plane.LAUNCHES["plane_walk_trunc"] == \
-        walks["plane_walk_trunc"] + trunc
+    counts = trace.counters()
+    assert counts["launches.plane_walk"] == \
+        walks.get("launches.plane_walk", 0) + calls
+    assert counts["launches.plane_walk_trunc"] == \
+        walks.get("launches.plane_walk_trunc", 0) + trunc

@@ -16,6 +16,7 @@ import torch
 import jax.numpy as jnp
 
 import viterbidecodercpp_torch as pt
+from viterbidecodercpp_torch import trace
 import viterbidecodercpp_tpu as vt
 from viterbidecodercpp_torch.ops import chainback, rotated, torch_core
 from viterbidecodercpp_tpu.ops import bigstate, jax_core, rotated_pallas
@@ -243,10 +244,10 @@ def test_cuda_kernel_matches_plain(cuda_device, name, mode, arith):
     m0, syms = _inputs(ts, 64, 301, seed=1)
     m0 = torch.as_tensor(m0, device=cuda_device)
     sy = torch.as_tensor(syms, device=cuda_device)
-    before = rotated.LAUNCHES
+    before = trace.counters().get("launches.rotated_acs", 0)
     got = rotated.acs_rotated(ts, m0, sy)
     torch.cuda.synchronize()
-    assert rotated.LAUNCHES == before + 1
+    assert trace.counters()["launches.rotated_acs"] == before + 1
     want = rotated.acs_rotated_ref(ts, m0, sy)
     for g, w in zip(got, want):
         assert torch.equal(g, w)

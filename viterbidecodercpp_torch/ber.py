@@ -43,6 +43,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from . import trace
 from .codes import CodeSpec
 from .config import DecoderConfig
 from .decoder import ViterbiDecoder, resolve_device
@@ -194,13 +195,16 @@ def measure_point(code: CodeSpec, config: DecoderConfig, EbNo_dB: float, *,
                                   block_bits)
             e = decode_errors(dec, syms, tx)
             if group is None:
-                errors += int(e)
+                with trace.host_read("ber.counts"):
+                    errors += int(e)
             else:
                 flag = int(bits + step >= stop_bits and expired())
-                e, fired = all_reduce(torch.stack(
+                counts = all_reduce(torch.stack(
                     [e.to(torch.int64),
                      torch.full((), flag, dtype=torch.int64, device=dev)]),
-                    group).tolist()
+                    group)
+                with trace.host_read("ber.counts"):
+                    e, fired = counts.tolist()
                 errors += e
                 fired = fired > 0
             bits += step

@@ -35,6 +35,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from . import trace
 from .codes import CodeSpec
 from .config import DecoderConfig, DecodeType, get_decode_config
 from .ops import bigstate, lane, plane, rotated, torch_core
@@ -234,29 +235,30 @@ class ViterbiDecoder:
 
     def _reset(self, batch: int, starting_state: int,
                zero_fill: bool) -> DecoderState:
-        spec, dev = self.spec, self.device
-        rows = self.decision_rows
-        if self._plane:
-            # rows round up to the JAX plane kernel's time block, so a
-            # checkpoint's buffer has one shape in both packages; rows
-            # past decision_rows are never written or read
-            tb = plane.time_block_rows(spec)
-            rows = -(-rows // tb) * tb
-            shape = (batch, rows, spec.W // plane.COLS, plane.COLS)
-        else:
-            shape = (rows, spec.W, batch)
-        alloc = torch.zeros if zero_fill else torch.empty
-        return DecoderState(
-            metrics=torch_core.initial_metrics(spec, batch, starting_state,
-                                               dev),
-            decisions=alloc(shape, dtype=torch.int32, device=dev),
-            accumulated_error=torch.zeros(batch, dtype=torch.int32,
-                                          device=dev),
-            bit_cursor=torch.zeros((), dtype=torch.int32, device=dev),
-            row_rots=(torch.zeros(rows, dtype=torch.int32, device=dev)
-                      if self._rotated or self._plane else None),
-            host_cursor=0,
-        )
+        with trace.span("decoder.reset"):
+            spec, dev = self.spec, self.device
+            rows = self.decision_rows
+            if self._plane:
+                # rows round up to the JAX plane kernel's time block, so a
+                # checkpoint's buffer has one shape in both packages; rows
+                # past decision_rows are never written or read
+                tb = plane.time_block_rows(spec)
+                rows = -(-rows // tb) * tb
+                shape = (batch, rows, spec.W // plane.COLS, plane.COLS)
+            else:
+                shape = (rows, spec.W, batch)
+            alloc = torch.zeros if zero_fill else torch.empty
+            return DecoderState(
+                metrics=torch_core.initial_metrics(spec, batch, starting_state,
+                                                   dev),
+                decisions=alloc(shape, dtype=torch.int32, device=dev),
+                accumulated_error=torch.zeros(batch, dtype=torch.int32,
+                                              device=dev),
+                bit_cursor=torch.zeros((), dtype=torch.int32, device=dev),
+                row_rots=(torch.zeros(rows, dtype=torch.int32, device=dev)
+                          if self._rotated or self._plane else None),
+                host_cursor=0,
+            )
 
     # -- hot path ---------------------------------------------------------
     def update(self, state: DecoderState, symbols) -> DecoderState:
@@ -264,6 +266,10 @@ class ViterbiDecoder:
         carry with N/R more decision rows written (in place into
         ``state.decisions``).  Call as many times as you like before
         ``chainback`` (run_punctured_decoder.cpp:258-282)."""
+        with trace.span("decoder.update"):
+            return self._update(state, symbols)
+
+    def _update(self, state: DecoderState, symbols) -> DecoderState:
         spec = self.spec
         n = spec.K - 1
         symbols = torch.as_tensor(symbols, device=self.device)
@@ -286,7 +292,8 @@ class ViterbiDecoder:
         # pays one device read the first time.
         cursor = state.host_cursor
         if cursor is None:
-            cursor = int(state.bit_cursor)
+            with trace.host_read("decoder.cursor"):
+                cursor = int(state.bit_cursor)
         if cursor + nbits > capacity:
             raise ValueError(
                 f"decision buffer overflow: {cursor} rows used + "
@@ -359,6 +366,13 @@ class ViterbiDecoder:
         exact walk's with overwhelming probability, but are no longer
         guaranteed maximum-likelihood.
         """
+        with trace.span("decoder.chainback"):
+            return self._chainback(state, total_bits, end_state, mode, block,
+                                   overlap)
+
+    def _chainback(self, state: DecoderState, total_bits: int,
+                   end_state: int, mode: str, block: int,
+                   overlap: int) -> torch.Tensor:
         if total_bits > self._traceback_length:
             raise ValueError("total_bits exceeds traceback_length")
         if mode not in ("exact", "truncated"):
@@ -409,6 +423,11 @@ class ViterbiDecoder:
         rotated-layout scan (ops/bigstate.py), as the JAX xla backend's
         decode does, without touching the traceback length.
         """
+        with trace.span("decoder.decode"):
+            return self._decode(symbols, total_bits, end_state)
+
+    def _decode(self, symbols, total_bits: int, end_state: int
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
         spec = self.spec
         symbols = torch.as_tensor(symbols, device=self.device)
         B = symbols.shape[0]

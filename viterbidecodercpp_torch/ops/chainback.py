@@ -25,18 +25,15 @@ from typing import Optional
 
 import torch
 
+from .. import trace
 from .torch_core import StaticSpec, _unpack_bit, needs_big_state
 
 __all__ = ["chainback", "chainback_ref", "walk_rows", "walk_rows_ref",
-           "walk_design", "TILED_MAX_WORDS", "LAUNCHES"]
+           "walk_design", "TILED_MAX_WORDS"]
 
 # Widest row (in int32 words) of the tiled walk (VDT_TILED_MAX_W in
 # csrc/chainback.cu), a template on W in {1, 2, 4, 8}.
 TILED_MAX_WORDS = 8
-
-# Kernel launches by chainback / walk_rows (reset and read by
-# chip_smoke.py).
-LAUNCHES = 0
 
 
 def walk_design(W: int) -> str:
@@ -130,8 +127,7 @@ def _walk_cuda(spec: StaticSpec, packed: torch.Tensor, start: torch.Tensor,
     if err != 0:
         raise RuntimeError(f"chainback kernel launch failed: CUDA error "
                            f"{err}")
-    global LAUNCHES
-    LAUNCHES += 1
+    trace.count("launches.chainback")
     return bits
 
 
@@ -165,8 +161,9 @@ def chainback(spec: StaticSpec, packed: torch.Tensor,
     (later rows are ignored); end_state: (B,) int32 walk start states.
     ``slot_order``/``rots``: see the module docstring.
     """
-    return _chainback(spec, packed, end_state, total_bits, slot_order, rots,
-                      plain=False)
+    with trace.span("ops.chainback"):
+        return _chainback(spec, packed, end_state, total_bits, slot_order,
+                          rots, plain=False)
 
 
 def chainback_ref(spec: StaticSpec, packed: torch.Tensor,
@@ -189,8 +186,9 @@ def walk_rows(spec: StaticSpec, packed: torch.Tensor,
     slicing.  A row with ``valid == 0`` emits its bit but leaves the walk
     state untouched (stream padding past the true end).
     """
-    return _walk(spec, packed, start_state, packed.shape[0], slot_order,
-                 rots, valid, plain=False)
+    with trace.span("ops.chainback"):
+        return _walk(spec, packed, start_state, packed.shape[0], slot_order,
+                     rots, valid, plain=False)
 
 
 def walk_rows_ref(spec: StaticSpec, packed: torch.Tensor,

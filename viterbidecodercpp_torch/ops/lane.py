@@ -33,15 +33,12 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from .torch_core import KERNEL_MAX_RATE, StaticSpec, acs_scan, rows_out
 
-__all__ = ["supports", "acs_lane", "acs_lane_ref", "MAX_LANE_KERNEL_STATES",
-           "LAUNCHES"]
+__all__ = ["supports", "acs_lane", "acs_lane_ref", "MAX_LANE_KERNEL_STATES"]
 
 MAX_LANE_KERNEL_STATES = 32   # one warp holds a whole frame
-
-# Kernel launches by acs_lane (reset and read by chip_smoke.py).
-LAUNCHES = 0
 
 
 def supports(spec: StaticSpec) -> bool:
@@ -119,34 +116,36 @@ def acs_lane(spec: StaticSpec, metrics: torch.Tensor, symbols: torch.Tensor,
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
     (``csrc/lane_acs.cu``) or raise."""
-    B, T = _check(spec, metrics, symbols)
-    if metrics.device.type == "cpu":
-        return acs_lane_ref(spec, metrics, symbols, out)
-    if metrics.device.type != "cuda":
-        raise ValueError(f"unsupported device {metrics.device}")
-    for name, x in (("metrics", metrics), ("symbols", symbols)):
-        if x.dtype != torch.int32 or not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous int32 on CUDA, got "
-                             f"{x.dtype}, contiguous={x.is_contiguous()}")
-    if spec.R > KERNEL_MAX_RATE:
-        raise ValueError(f"the CUDA lane ACS takes R <= {KERNEL_MAX_RATE}, "
-                         f"got R={spec.R}")
-    if B == 0:
-        raise ValueError("empty batch")
-    packed = rows_out(spec, metrics, T, out)
-    fn = _launcher()
-    pat = _lane_patterns(spec)
-    m_out = torch.empty_like(metrics)
-    acc = torch.empty(B, dtype=torch.int32, device=metrics.device)
-    with torch.cuda.device(metrics.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(metrics.data_ptr(), symbols.data_ptr(), m_out.data_ptr(),
-                 packed.data_ptr(), acc.data_ptr(), B, T, spec.K, spec.R,
-                 pat.ctypes.data, spec.soft_high, spec.soft_low,
-                 spec.max_error, spec.metric_max, spec.renorm_threshold,
-                 int(spec.saturating), stream)
-    if err != 0:
-        raise RuntimeError(f"lane ACS kernel launch failed: CUDA error {err}")
-    global LAUNCHES
-    LAUNCHES += 1
-    return m_out, packed, acc
+    with trace.span("ops.lane_acs"):
+        B, T = _check(spec, metrics, symbols)
+        if metrics.device.type == "cpu":
+            return acs_lane_ref(spec, metrics, symbols, out)
+        if metrics.device.type != "cuda":
+            raise ValueError(f"unsupported device {metrics.device}")
+        for name, x in (("metrics", metrics), ("symbols", symbols)):
+            if x.dtype != torch.int32 or not x.is_contiguous():
+                raise ValueError(f"{name} must be contiguous int32 on CUDA, "
+                                 f"got {x.dtype}, "
+                                 f"contiguous={x.is_contiguous()}")
+        if spec.R > KERNEL_MAX_RATE:
+            raise ValueError(f"the CUDA lane ACS takes R <= "
+                             f"{KERNEL_MAX_RATE}, got R={spec.R}")
+        if B == 0:
+            raise ValueError("empty batch")
+        packed = rows_out(spec, metrics, T, out)
+        fn = _launcher()
+        pat = _lane_patterns(spec)
+        m_out = torch.empty_like(metrics)
+        acc = torch.empty(B, dtype=torch.int32, device=metrics.device)
+        with torch.cuda.device(metrics.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = fn(metrics.data_ptr(), symbols.data_ptr(),
+                     m_out.data_ptr(), packed.data_ptr(), acc.data_ptr(), B,
+                     T, spec.K, spec.R, pat.ctypes.data, spec.soft_high,
+                     spec.soft_low, spec.max_error, spec.metric_max,
+                     spec.renorm_threshold, int(spec.saturating), stream)
+        if err != 0:
+            raise RuntimeError(f"lane ACS kernel launch failed: CUDA error "
+                               f"{err}")
+        trace.count("launches.lane_acs")
+        return m_out, packed, acc

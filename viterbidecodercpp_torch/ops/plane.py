@@ -48,6 +48,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from . import rotated
 from .torch_core import (KERNEL_MAX_RATE, MAX_LANE_STATES, StaticSpec,
                          spec_cache, symmetric_amplitude, wrap_int32)
@@ -57,7 +58,7 @@ __all__ = ["supports", "acs_kernel", "time_block_rows", "global_grid",
            "walk_plane_frames_ref", "chainback_plane",
            "chainback_plane_truncated", "chainback_plane_truncated_ref",
            "decode_big_plane", "MAX_CLUSTER_STATES", "GLOBAL_TILE",
-           "LAUNCHES", "ACTIVE_CLUSTERS", "RESIDENT_BLOCKS"]
+           "KERNELS", "ACTIVE_CLUSTERS", "RESIDENT_BLOCKS"]
 
 COLS = 128          # lanes per plane row
 LANE_BITS = 7
@@ -72,9 +73,10 @@ MAX_CLUSTER_STATES = 1 << 18
 # slots of one frame a block of the global-metric kernel steps at once
 GLOBAL_TILE = 1 << 13
 
-# Kernel launches by the public wrappers (reset and read by chip_smoke.py).
-LAUNCHES = {"plane_acs": 0, "plane_acs_global": 0, "plane_walk": 0,
-            "plane_walk_trunc": 0}
+# The kernels the public wrappers launch, each launch counted as the
+# counter ``launches.<kernel>`` of ``viterbidecodercpp_torch.trace``
+KERNELS = ("plane_acs", "plane_acs_global", "plane_walk", "plane_walk_trunc")
+_COUNTERS = {k: "launches." + k for k in KERNELS}
 # cudaOccupancyMaxActiveClusters of each cluster configuration the ACS has
 # launched, keyed (device index, K, R, saturating); queried before its
 # first launch
@@ -119,8 +121,8 @@ def _check_spec(spec: StaticSpec) -> None:
 
 
 def _launch(name: str, symbol: str, argtypes, *args) -> None:
-    """Call ``symbol``, which launches one kernel, and count it in
-    LAUNCHES[name]."""
+    """Call ``symbol``, which launches one kernel, and count it as
+    ``launches.<name>``."""
     from . import _build
 
     fn = getattr(_build.load(name), symbol)
@@ -129,7 +131,7 @@ def _launch(name: str, symbol: str, argtypes, *args) -> None:
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    LAUNCHES[name] += 1
+    trace.count(_COUNTERS[name])
 
 
 def _check_clusters(spec: StaticSpec, dev: torch.device) -> None:
@@ -341,6 +343,12 @@ def acs_plane(spec: StaticSpec, metrics: torch.Tensor, symbols: torch.Tensor,
     of S/32768 blocks from K=17), ``csrc/plane_acs_global.cu`` above (one
     cooperative launch of :func:`global_grid`'s blocks) - or raise.
     """
+    with trace.span("ops.plane_acs" if spec.S <= MAX_CLUSTER_STATES
+                    else "ops.plane_acs_global"):
+        return _acs_plane(spec, metrics, symbols, phase0, out, row0)
+
+
+def _acs_plane(spec, metrics, symbols, phase0, out, row0):
     B, T, symbols, out = _acs_args(spec, metrics, symbols, out, row0)
     phase0 = int(phase0) % (spec.K - 1)
     if metrics.device.type == "cpu":
@@ -628,8 +636,9 @@ def walk_plane_frames(spec: StaticSpec, packed: torch.Tensor,
     emits its bit and keeps the state.  CPU tensors take the plain
     version; CUDA tensors launch ``csrc/plane_walk.cu`` or raise.
     """
-    return _walk(spec, packed, start_state, packed.shape[1], rots, valid,
-                 plain=False)
+    with trace.span("ops.plane_walk"):
+        return _walk(spec, packed, start_state, packed.shape[1], rots, valid,
+                     plain=False)
 
 
 def walk_plane_frames_ref(spec: StaticSpec, packed: torch.Tensor,
@@ -655,8 +664,9 @@ def chainback_plane(spec: StaticSpec, packed: torch.Tensor,
     if packed.dim() == 4 and packed.shape[1] < total_bits + n:
         raise ValueError(f"decision history has {packed.shape[1]} rows < "
                          f"total_bits + K - 1 = {total_bits + n}")
-    bits = _walk(spec, packed, end_state, total_bits + n, rots, None,
-                 plain=False)
+    with trace.span("ops.plane_walk"):
+        bits = _walk(spec, packed, end_state, total_bits + n, rots, None,
+                     plain=False)
     return bits[:, n:]
 
 
@@ -737,23 +747,24 @@ def chainback_plane_truncated(spec: StaticSpec, packed: torch.Tensor,
     plain version; CUDA tensors launch ``csrc/plane_walk_trunc.cu`` or
     raise.
     """
-    dev = _trunc_args(spec, packed, end_state, total_bits, rots, block,
-                      overlap)
-    if dev.type == "cpu":
-        return _trunc_plain(spec, packed, end_state, total_bits, rots,
-                            block, overlap)
-    _check_cuda(packed=packed, end_state=end_state, rots=rots)
-    B = packed.shape[0]
-    if B == 0:
-        raise ValueError("empty batch")
-    bits = torch.empty((B, total_bits), dtype=torch.uint8, device=dev)
-    _launch("plane_walk_trunc", "vdt_plane_walk_trunc",
-            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
-            packed.data_ptr(), end_state.data_ptr(),
-            rots.data_ptr() if rots is not None else None, bits.data_ptr(),
-            B, packed.shape[1], spec.K, total_bits, block, overlap,
-            _stream(dev))
-    return bits
+    with trace.span("ops.plane_walk_trunc"):
+        dev = _trunc_args(spec, packed, end_state, total_bits, rots, block,
+                          overlap)
+        if dev.type == "cpu":
+            return _trunc_plain(spec, packed, end_state, total_bits, rots,
+                                block, overlap)
+        _check_cuda(packed=packed, end_state=end_state, rots=rots)
+        B = packed.shape[0]
+        if B == 0:
+            raise ValueError("empty batch")
+        bits = torch.empty((B, total_bits), dtype=torch.uint8, device=dev)
+        _launch("plane_walk_trunc", "vdt_plane_walk_trunc",
+                [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+                packed.data_ptr(), end_state.data_ptr(),
+                rots.data_ptr() if rots is not None else None, bits.data_ptr(),
+                B, packed.shape[1], spec.K, total_bits, block, overlap,
+                _stream(dev))
+        return bits
 
 
 def chainback_plane_truncated_ref(spec: StaticSpec, packed: torch.Tensor,

@@ -33,12 +33,12 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from .. import trace
 from .torch_core import (KERNEL_MAX_RATE, MAX_LANE_STATES, StaticSpec,
                          pack_bits, rows_out, spec_cache)
 
 __all__ = ["acs_rotated", "acs_rotated_ref", "slot_scan", "kernel_design",
-           "ROTATED_MIN_STATES", "WARP_MAX_STATES", "WARP_MAX_RATE",
-           "LAUNCHES"]
+           "ROTATED_MIN_STATES", "WARP_MAX_STATES", "WARP_MAX_RATE"]
 
 ROTATED_MIN_STATES = 64
 # Bounds of the warp-per-frame design (VDT_WARP_MAX_N, VDT_WARP_MAX_R in
@@ -46,9 +46,6 @@ ROTATED_MIN_STATES = 64
 # has at most 2^R <= 32 branch patterns, one per lane.
 WARP_MAX_STATES = 1024
 WARP_MAX_RATE = 5
-
-# Kernel launches by acs_rotated (reset and read by chip_smoke.py).
-LAUNCHES = 0
 
 
 def _rotr(x: np.ndarray, k: int, n: int) -> np.ndarray:
@@ -283,36 +280,37 @@ def acs_rotated(spec: StaticSpec, metrics: torch.Tensor,
     the decision rows (and is returned as ``packed``), e.g. a slice of a
     decoder's row buffer.  CPU tensors take the plain version; CUDA
     tensors launch the kernel (``csrc/rotated_acs.cu``) or raise."""
-    B, T = _check(spec, metrics, symbols)
-    if metrics.device.type == "cpu":
-        return acs_rotated_ref(spec, metrics, symbols, out)
-    if metrics.device.type != "cuda":
-        raise ValueError(f"unsupported device {metrics.device}")
-    for name, x in (("metrics", metrics), ("symbols", symbols)):
-        if x.dtype != torch.int32 or not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous int32 on CUDA, got "
-                             f"{x.dtype}, contiguous={x.is_contiguous()}")
-    if spec.R > KERNEL_MAX_RATE:
-        raise ValueError(f"the CUDA rotated ACS takes R <= "
-                         f"{KERNEL_MAX_RATE}, got R={spec.R}")
-    if B == 0:
-        raise ValueError("empty batch")
-    fn = _launcher()
-    g, apat, cpat, _ = _launch_tables(spec)
-    m_out = torch.empty_like(metrics)
-    packed = rows_out(spec, metrics, T, out)
-    acc = torch.empty(B, dtype=torch.int32, device=metrics.device)
-    with torch.cuda.device(metrics.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(metrics.data_ptr(), symbols.data_ptr(), m_out.data_ptr(),
-                 packed.data_ptr(), acc.data_ptr(), B, T, spec.K, spec.R,
-                 ctypes.cast(g, ctypes.c_void_p), apat, cpat,
-                 spec.soft_high, spec.soft_low, spec.max_error,
-                 spec.metric_max, spec.renorm_threshold,
-                 int(spec.saturating), stream)
-    if err != 0:
-        raise RuntimeError(f"rotated ACS kernel launch failed: CUDA error "
-                           f"{err}")
-    global LAUNCHES
-    LAUNCHES += 1
-    return m_out, packed, acc
+    with trace.span("ops.rotated_acs"):
+        B, T = _check(spec, metrics, symbols)
+        if metrics.device.type == "cpu":
+            return acs_rotated_ref(spec, metrics, symbols, out)
+        if metrics.device.type != "cuda":
+            raise ValueError(f"unsupported device {metrics.device}")
+        for name, x in (("metrics", metrics), ("symbols", symbols)):
+            if x.dtype != torch.int32 or not x.is_contiguous():
+                raise ValueError(f"{name} must be contiguous int32 on CUDA, "
+                                 f"got {x.dtype}, "
+                                 f"contiguous={x.is_contiguous()}")
+        if spec.R > KERNEL_MAX_RATE:
+            raise ValueError(f"the CUDA rotated ACS takes R <= "
+                             f"{KERNEL_MAX_RATE}, got R={spec.R}")
+        if B == 0:
+            raise ValueError("empty batch")
+        fn = _launcher()
+        g, apat, cpat, _ = _launch_tables(spec)
+        m_out = torch.empty_like(metrics)
+        packed = rows_out(spec, metrics, T, out)
+        acc = torch.empty(B, dtype=torch.int32, device=metrics.device)
+        with torch.cuda.device(metrics.device):
+            stream = torch.cuda.current_stream().cuda_stream
+            err = fn(metrics.data_ptr(), symbols.data_ptr(),
+                     m_out.data_ptr(), packed.data_ptr(), acc.data_ptr(), B,
+                     T, spec.K, spec.R, ctypes.cast(g, ctypes.c_void_p),
+                     apat, cpat, spec.soft_high, spec.soft_low,
+                     spec.max_error, spec.metric_max, spec.renorm_threshold,
+                     int(spec.saturating), stream)
+        if err != 0:
+            raise RuntimeError(f"rotated ACS kernel launch failed: CUDA "
+                               f"error {err}")
+        trace.count("launches.rotated_acs")
+        return m_out, packed, acc

@@ -39,14 +39,13 @@ from a non-first neighbour's first ``overlap`` own rows, with
 
 from __future__ import annotations
 
-import contextlib
-import time
 from typing import Optional
 
 import numpy as np
 import torch
 import torch.distributed as dist
 
+from .. import trace
 from ..decoder import resolve_device, select_backend
 from ..ops import chainback, lane, plane, rotated, torch_core
 from ..ops.torch_core import StaticSpec
@@ -143,7 +142,19 @@ def decode_stream_sp(spec: StaticSpec, mesh, symbols_tile, *, overlap: int,
     the mesh (0-d int64 on ``device``).  Raises ValueError, on every rank,
     when the ranks' tiles differ in shape (the stream does not split
     evenly) and when the padding reaches past one tile minus the overlap.
+
+    With tracing on (``viterbidecodercpp_torch.trace``) the call is a span
+    ``sp.decode_stream_sp`` over spans ``sp.exchange`` (detail: the
+    stage) and ``sp.tile`` (``acs``, ``walk``); ``timings`` and tracing
+    are independent.
     """
+    with trace.span("sp.decode_stream_sp"):
+        return _decode(spec, mesh, symbols_tile, overlap, end_state,
+                       total_rows, backend, plain, device, timings)
+
+
+def _decode(spec, mesh, symbols_tile, overlap, end_state, total_rows,
+            backend, plain, device, timings) -> SpResult:
     dev = resolve_device(device)
     route = select_backend(spec, dev, backend)
     sym = torch.as_tensor(symbols_tile, device=dev)
@@ -162,10 +173,12 @@ def decode_stream_sp(spec: StaticSpec, mesh, symbols_tile, *, overlap: int,
     Bl, L, _ = sym.shape
 
     # the halos have the neighbours' shapes: every tile must match
-    with _span(timings, "exchange", dev):
+    with _span(timings, "exchange", dev, "tile_shape"):
         shape = torch.tensor([L, -L, Bl, -Bl], dtype=torch.int64,
                              device=dev)
-        shape = all_reduce(shape, tgroup, dist.ReduceOp.MAX).tolist()
+        shape = all_reduce(shape, tgroup, dist.ReduceOp.MAX)
+        with trace.host_read("sp.tile_shape"):
+            shape = shape.tolist()
     if shape[0] != -shape[1] or shape[2] != -shape[3]:
         raise ValueError(
             f"the time axis' tiles differ: lengths {-shape[1]}..{shape[0]}, "
@@ -186,9 +199,9 @@ def decode_stream_sp(spec: StaticSpec, mesh, symbols_tile, *, overlap: int,
 
     # -- ACS: rank 0 from the reset metrics over its own rows; the others
     # from uniform metrics over the left neighbour's last O rows + tile
-    with _span(timings, "exchange", dev):
+    with _span(timings, "exchange", dev, "halo_syms"):
         halo_syms = shift(sym[:, L - O:], tgroup, 1)
-    with _span(timings, "tile", dev):
+    with _span(timings, "tile", dev, "acs"):
         if idx == 0:
             m0 = torch_core.initial_metrics(spec, Bl, 0, dev)
             own = _acs(route, plain, spec, m0, sym)
@@ -203,10 +216,10 @@ def decode_stream_sp(spec: StaticSpec, mesh, symbols_tile, *, overlap: int,
                     + base + 1) % n
 
     # -- walk: the others' first O own rows warm each tile down
-    with _span(timings, "exchange", dev):
+    with _span(timings, "exchange", dev, "halo_dec"):
         head = own[:, :O] if plane_route else own[:O]
         halo_dec = shift(head.contiguous(), tgroup, -1)
-    with _span(timings, "tile", dev):
+    with _span(timings, "tile", dev, "walk"):
         if idx == ntime - 1:
             grow = torch.arange(L, device=dev) + idx * L
             valid = (grow < total_rows).to(torch.int32)
@@ -225,7 +238,7 @@ def decode_stream_sp(spec: StaticSpec, mesh, symbols_tile, *, overlap: int,
             bits, halo_pred = walked[:, :L], walked[:, L:L + J]
 
     # -- diagnostic: each owner ships its oldest J bits left
-    with _span(timings, "exchange", dev):
+    with _span(timings, "exchange", dev, "diagnostic"):
         recv = shift(bits[:, :J].contiguous(), tgroup, -1)
         diff = torch.zeros((), dtype=torch.int64, device=dev)
         if halo_pred is not None:
@@ -235,32 +248,17 @@ def decode_stream_sp(spec: StaticSpec, mesh, symbols_tile, *, overlap: int,
     return SpResult(bits, diff)
 
 
-@contextlib.contextmanager
-def _span(timings: Optional[dict], name: str, dev: torch.device):
-    """Adds the seconds of the ``with`` body to ``timings[name]``: CUDA
-    events on a card, the host clock on the CPU, the device synchronised
-    at both ends (a span that waits on the host, as a staged exchange
-    does, counts its wait).  Does nothing when ``timings`` is None."""
-    if timings is None:
-        yield
-        return
-    cuda = dev.type == "cuda"
+_SPANS = {"exchange": "sp.exchange", "tile": "sp.tile"}
 
-    def now():
-        if not cuda:
-            return time.perf_counter()
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        ev.synchronize()
-        return ev
 
-    if cuda:
-        torch.cuda.synchronize()
-    t0 = now()
-    yield
-    t1 = now()
-    secs = t0.elapsed_time(t1) / 1e3 if cuda else t1 - t0
-    timings[name] = timings.get(name, 0.0) + secs
+def _span(timings: Optional[dict], name: str, dev: torch.device,
+          stage: str):
+    """The recorder's span ``sp.<name>`` (detail ``stage``) around a
+    ``with`` body, which with ``timings`` also adds the body's seconds to
+    ``timings[name]``: CUDA events on a card, the host clock on the CPU,
+    the device synchronised at both ends (a span that waits on the host,
+    as a staged exchange does, counts its wait)."""
+    return trace.timed_span(_SPANS[name], stage, timings, name, dev)
 
 
 def dryrun(world: int, *, device="cuda") -> None:

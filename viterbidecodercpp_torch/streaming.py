@@ -27,6 +27,7 @@ from typing import Optional, Tuple, Union
 import numpy as np
 import torch
 
+from . import trace
 from .codes import CodeSpec
 from .config import DecoderConfig, DecodeType, get_decode_config
 from .decoder import select_backend
@@ -120,6 +121,11 @@ class StreamingDecoder:
         ``bits`` is (B, chunk) uint8, the bits decided ``window`` steps
         ago; ``valid`` is False while the ring primes (the first
         window / chunk - 1 pushes)."""
+        with trace.span("streaming.push"):
+            return self._push(state, symbols)
+
+    def _push(self, state: StreamingState, symbols
+              ) -> Tuple[StreamingState, torch.Tensor, bool]:
         spec, chunk, plain = self.spec, self.chunk, self.plain
         symbols = torch.as_tensor(symbols, device=self.device)
         if symbols.dim() != 2 or symbols.shape[1] != chunk * spec.R:
@@ -160,7 +166,8 @@ class StreamingDecoder:
             bits = rows[:chunk].t()
         seen = state.host_rows
         if seen is None:
-            seen = int(state.rows_seen)
+            with trace.host_read("streaming.rows_seen"):
+                seen = int(state.rows_seen)
         new_state = StreamingState(metrics=metrics, history=history,
                                    rows_seen=state.rows_seen + chunk,
                                    host_rows=seen + chunk)
