@@ -75,7 +75,8 @@ Phases, in order; any failure raises and exits non-zero:
    + plane walk); 2048 data bits per frame plus the tail and window+chunk
    flush rows.  Each stream must equal the data sent on mild noise, equal
    the same stream through the plain versions of its kernels on the card
-   (bits, valid, final metrics, ring) and have launched its kernels.  Then
+   (bits, valid, final metrics, ring), have launched its kernels and
+   have replayed its CUDA graph at every push after the first.  Then
    Voyager on an AWGN channel (utils/testsig.py): the bit-error delta of
    windows 64, 128 and 256 against the exact decode of the same symbols.
 3e. K >= 18 at full width: a K=18 R=1/2 SOFT16 code, B=64 x 2048
@@ -93,7 +94,8 @@ Phases, in order; any failure raises and exits non-zero:
    the int32 rate, counted from the shapes; an ACS step counts its 2^R
    branch metrics once a frame) and its share of the bound,
    each whole decode in decoded symbols/s (B*T*R / s), and each stream's
-   median ms per push (of 41: a push is host-bound) and streamed
+   median ms per push (of 41, each into the state the last returned: a
+   push is host-bound) and streamed
    symbols/s (B*chunk*R / s).
 4e. The two plane ACS routes past K=17 beside their bounds: the cluster
    kernel at K=18 (B=64 x 2065 steps) and K=19 (B=16 x 530), the
@@ -884,6 +886,16 @@ def run_stream(sd, stream: torch.Tensor, n_push: int):
     return out, state
 
 
+def chained_push(sd, state, block):
+    """A call that pushes ``block`` into the stream of ``state``, each call
+    into the state the last one returned (a push consumes its state)."""
+    held = [state]
+
+    def push():
+        held[0] = sd.push(held[0], block)[0]
+    return push
+
+
 def committed(out, code, N: int) -> torch.Tensor:
     """The data bits of a stream: its valid output from row K-1 on."""
     bits = torch.cat([b for b, v in out if v], dim=1)
@@ -926,6 +938,12 @@ def phase3d(pt, dev, rng, launches: dict, seed: int) -> list:
         torch.cuda.synchronize()
         counts = read_counts()
         add_counts(launches, counts, kernels, f"the {label} stream")
+        pushes = [pt.trace.counters().get("streaming." + k, 0)
+                  for k in ("graph_captures", "eager_pushes",
+                            "graph_replays")]
+        require(pushes == [1, 1, n_push - 1],
+                f"{label}: captures, eager pushes and replays {pushes}, "
+                f"not [1, 1, {n_push - 1}]")
         exact = exact_frames(committed(out, code, N), data)
         require(exact == B, f"{label}: only {exact} of {B} streams equal "
                             f"the data sent")
@@ -940,7 +958,8 @@ def phase3d(pt, dev, rng, launches: dict, seed: int) -> list:
                     f"{label}: final {f} != the plain stream")
         print(f"phase3d ok: {label} ({route}), {n_push} pushes: {exact}/{B} "
               f"streams equal the data sent; bits, valid, final metrics and "
-              f"ring == the plain stream on the card; launches "
+              f"ring == the plain stream on the card; every push after "
+              f"the first a graph replay; launches "
               f"{ {k: counts[k] for k in kernels} }", flush=True)
         timed.append((label, sd, state, stream[:, :chunk * R]))
         del out_p, state_p, stream
@@ -2166,7 +2185,7 @@ def main() -> None:
     rate_l = Bl * Tl * Rl / (decode_ms_l / 1e3)
     stream_times = []
     for label, sd, st, block in streams:
-        push_ms = time_ms(lambda: sd.push(st, block), PUSH_REPS, 5)
+        push_ms = time_ms(chained_push(sd, st, block), PUSH_REPS, 5)
         stream_times.append({"stream": label, "route": sd.backend,
                              "push_ms": push_ms,
                              "streamed_symbols_per_s":

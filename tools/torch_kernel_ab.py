@@ -177,16 +177,20 @@ def in_turns(fns: dict, reps: int = 7, warmup: int = 2,
 
 
 def primed_push(pkg, name, B, window, chunk, rng):
-    """A push of one block into a stream whose ring is full."""
+    """A push of one block into a stream whose ring is full, each call
+    into the state the last one returned (a push consumes its state)."""
     code = pkg.get_code(name)
     sd = pkg.StreamingDecoder(code, "SOFT16", window=window, chunk=chunk,
                               device="cuda")
-    state = sd.reset(B)
     block = torch.as_tensor(rng.randint(-127, 128, (B, chunk * code.R))
                             .astype(np.int32), device="cuda")
+    held = [sd.reset(B)]
+
+    def push():
+        held[0] = sd.push(held[0], block)[0]
     for _ in range(window // chunk + 1):
-        state, _, _ = sd.push(state, block)
-    return lambda: sd.push(state, block)
+        push()
+    return push
 
 
 def profile_decode(dec, syms, nbits) -> dict:

@@ -17,12 +17,21 @@ state-order walk) and ``"torch"`` (the plain state-order scan and walk,
 on any device).  Every push restarts the ACS schedule at phase 0 and the
 ring shifts by exactly ``chunk`` rows, so ring row i of a slot-order
 route walks with the static rotation ((i mod chunk) + 1) mod n.
+
+A stream's state lives in a *slot* of the decoder: its metrics, two
+rings (a push shifts one into the other), the row count, the static
+symbols a push copies in, and, on a card's kernel routes, a CUDA graph of
+the whole push from each ring, captured against those buffers.
+A push updates the slot in place and consumes the state it was given
+(the JAX push donates it); the slot goes back to the decoder when the
+last state that refers to it is dropped.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple, Union
+import functools
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -40,7 +49,11 @@ __all__ = ["StreamingState", "StreamingDecoder"]
 class StreamingState:
     """Carry for a continuous decode, with the JAX ``StreamingState``'s
     fields: the metric vector, the last ``window`` decision rows (newest
-    last) and the rows seen so far."""
+    last) and the rows seen so far.
+
+    ``push`` consumes the state it is given: push the state it returns.
+    The tensors of a state that ``push`` returned belong to the decoder,
+    which overwrites them at the stream's next pushes."""
 
     metrics: torch.Tensor    # (S, B) int32, state order
     history: torch.Tensor    # (window, W, B); (B, window, W/128, 128) plane
@@ -48,6 +61,57 @@ class StreamingState:
     # Host mirror of rows_seen (None: read it from the device once).
     host_rows: Optional[int] = dataclasses.field(default=None,
                                                  compare=False)
+    # The stream's hold on its slot and the push count of the slot at
+    # which this state is current (None: a state push did not return)
+    _lease: Optional["_Lease"] = dataclasses.field(default=None,
+                                                   compare=False, repr=False)
+    _gen: int = dataclasses.field(default=0, compare=False, repr=False)
+
+
+class _Slot:
+    """One stream's buffers: the metrics, two rings (a push shifts the
+    ring ``cur`` into the other, which then holds the state), the row
+    count, the static symbols a push copies in, the push count, and
+    ``replays``: for each ring the replay of a push from it (None until
+    the push is captured, and always on a route that does not capture)."""
+
+    __slots__ = ("symbols", "metrics", "rings", "cur", "rows_seen", "gen",
+                 "replays")
+
+    def __init__(self, sd: "StreamingDecoder", B: int):
+        spec, dev = sd.spec, sd.device
+        self.symbols = torch.empty((B, sd.chunk * spec.R), dtype=torch.int32,
+                                   device=dev)
+        self.metrics = torch.empty((spec.S, B), dtype=torch.int32, device=dev)
+        self.rings = tuple(torch.empty(sd._ring_shape(B), dtype=torch.int32,
+                                       device=dev) for _ in range(2))
+        self.cur = 0
+        self.rows_seen = torch.empty((), dtype=torch.int32, device=dev)
+        self.gen = 0
+        self.replays = None
+
+
+class _Lease:
+    """A stream's hold on its slot, shared by every state of the stream;
+    when the last of them is dropped the slot returns to the decoder's
+    free list, which keeps one slot a batch size."""
+
+    __slots__ = ("slot", "pool")
+
+    def __init__(self, slot: _Slot, pool: Dict[int, List[_Slot]]):
+        self.slot, self.pool = slot, pool
+
+    def __del__(self):
+        free = self.pool.setdefault(self.slot.metrics.shape[1], [])
+        if not free:
+            free.append(self.slot)
+
+
+def _replay(graph, bits: torch.Tensor, counts: dict) -> torch.Tensor:
+    """Replay a captured push; its kernels count as launched."""
+    graph.replay()
+    trace.add(counts)
+    return bits
 
 
 class StreamingDecoder:
@@ -68,6 +132,10 @@ class StreamingDecoder:
     ``plain=True`` runs the plain versions of the route's kernels on any
     device (same layouts, same schedule): the reference the kernels are
     held against on the card.
+
+    On a card the kernel routes replay each push after a stream's first as
+    one CUDA graph; the plain versions, the ``"torch"`` route, the CPU
+    and the cooperative plane ACS (K >= 20) run eagerly.
     """
 
     def __init__(self, code: CodeSpec,
@@ -89,6 +157,13 @@ class StreamingDecoder:
         self.backend = select_backend(self.spec, self.device, backend)
         self.plain = bool(plain)
         self._rots = None
+        # free slots by batch size
+        self._free: Dict[int, List[_Slot]] = {}
+        self._graphed = (self.device.type == "cuda" and not self.plain
+                         and self.backend in ("rotated", "lane", "plane")
+                         and not (self.backend == "plane"
+                                  and plane.acs_kernel(self.spec)
+                                  == "plane_acs_global"))
 
     def _ring_rots(self) -> torch.Tensor:
         """(window,) int32 walk rotations of the ring's rows, made on the
@@ -100,16 +175,17 @@ class StreamingDecoder:
                 dtype=torch.int32, device=self.device)
         return self._rots
 
-    def reset(self, batch: int, starting_state: int = 0) -> StreamingState:
-        spec = self.spec
+    def _ring_shape(self, batch: int) -> tuple:
         if self.backend == "plane":
-            shape = (batch, self.window, spec.W // plane.COLS, plane.COLS)
-        else:
-            shape = (self.window, spec.W, batch)
+            return (batch, self.window, self.spec.W // plane.COLS, plane.COLS)
+        return (self.window, self.spec.W, batch)
+
+    def reset(self, batch: int, starting_state: int = 0) -> StreamingState:
         return StreamingState(
-            metrics=torch_core.initial_metrics(spec, batch, starting_state,
-                                               self.device),
-            history=torch.zeros(shape, dtype=torch.int32, device=self.device),
+            metrics=torch_core.initial_metrics(self.spec, batch,
+                                               starting_state, self.device),
+            history=torch.zeros(self._ring_shape(batch), dtype=torch.int32,
+                                device=self.device),
             rows_seen=torch.zeros((), dtype=torch.int32, device=self.device),
             host_rows=0,
         )
@@ -120,14 +196,15 @@ class StreamingDecoder:
 
         ``bits`` is (B, chunk) uint8, the bits decided ``window`` steps
         ago; ``valid`` is False while the ring primes (the first
-        window / chunk - 1 pushes)."""
+        window / chunk - 1 pushes).  ``state`` is consumed: pushing it
+        again raises ``ValueError``."""
         with trace.span("streaming.push"):
             return self._push(state, symbols)
 
     def _push(self, state: StreamingState, symbols
               ) -> Tuple[StreamingState, torch.Tensor, bool]:
-        spec, chunk, plain = self.spec, self.chunk, self.plain
-        symbols = torch.as_tensor(symbols, device=self.device)
+        spec, chunk = self.spec, self.chunk
+        symbols = torch.as_tensor(symbols)
         if symbols.dim() != 2 or symbols.shape[1] != chunk * spec.R:
             raise ValueError(f"push expects (B, chunk*R = {chunk * spec.R}) "
                              f"symbols, got {tuple(symbols.shape)}")
@@ -135,40 +212,137 @@ class StreamingDecoder:
         if B != state.metrics.shape[1]:
             raise ValueError(f"symbols carry {B} frames, the state "
                              f"{state.metrics.shape[1]}")
-        # the decoder's input clamp (helpers/test_helpers.h:88-93)
-        syms = torch.clamp(symbols.to(torch.int32), spec.soft_low,
-                           spec.soft_high).reshape(B, chunk, spec.R)
-        metrics = state.metrics.contiguous()
-        route = self.backend
-        if route == "plane":
-            acs = plane.acs_plane_ref if plain else plane.acs_plane
-            metrics, packed, _ = acs(spec, metrics, syms)
-            history = torch.cat([state.history[:, chunk:], packed], dim=1)
+        lease = self._bind(state, B)
+        slot = lease.slot
+        seen = state.host_rows
+        if seen is None:
+            with trace.host_read("streaming.rows_seen"):
+                seen = int(slot.rows_seen)
+        # the state is consumed from here on, whatever happens below
+        slot.gen += 1
+        state._lease, state._gen = lease, -1
+        slot.symbols.copy_(symbols)
+        src, slot.cur = slot.cur, 1 - slot.cur
+        if slot.replays is not None:
+            trace.count("streaming.graph_replays")
+            bits = slot.replays[src]()
         else:
-            acs = {"rotated": (rotated.acs_rotated, rotated.acs_rotated_ref),
-                   "lane": (lane.acs_lane, lane.acs_lane_ref),
-                   "torch": (torch_core.acs_scan, torch_core.acs_scan),
-                   }[route][plain]
-            metrics, packed, _ = acs(spec, metrics, syms)
-            history = torch.cat([state.history[chunk:], packed], dim=0)
+            trace.count("streaming.eager_pushes")
+            bits = self._eager(slot, src)
+        # a copy: a replay overwrites the graph's bits
+        bits = bits.clone(memory_format=torch.contiguous_format)
+        new_state = StreamingState(slot.metrics, slot.rings[slot.cur],
+                                   slot.rows_seen, seen + chunk, lease,
+                                   slot.gen)
+        return new_state, bits, seen + chunk >= self.window
+
+    def _bind(self, state: StreamingState, B: int) -> _Lease:
+        """The lease of the slot that holds ``state``: its own if push
+        returned it, else a free (or new) slot with its tensors copied in."""
+        lease = state._lease
+        if lease is not None:
+            if lease.pool is not self._free:
+                raise ValueError("the state belongs to another "
+                                 "StreamingDecoder")
+            if state._gen != lease.slot.gen:
+                raise ValueError("the state was consumed by an earlier push: "
+                                 "push the state that push returned")
+            return lease
+        shapes = ((state.metrics, (self.spec.S, B)),
+                  (state.history, self._ring_shape(B)),
+                  (state.rows_seen, ()))
+        for x, shape in shapes:
+            if tuple(x.shape) != shape:
+                raise ValueError(f"the state's tensors must be {shapes[0][1]}"
+                                 f", {shapes[1][1]} and (), got "
+                                 f"{[tuple(y.shape) for y, _ in shapes]}")
+        free = self._free.get(B)
+        slot = free.pop() if free else _Slot(self, B)
+        slot.metrics.copy_(state.metrics)
+        slot.rings[slot.cur].copy_(state.history)
+        slot.rows_seen.copy_(state.rows_seen)
+        return _Lease(slot, self._free)
+
+    def _eager(self, slot: _Slot, src: int) -> torch.Tensor:
+        """A push from ring ``src`` that does not replay: the body, and on
+        a graphed decoder also the capture of the slot's replays."""
+        if not self._graphed:
+            return self._body(slot, src)
+        trace.count("streaming.graph_captures")
+        bits, slot.replays = self._capture(slot, src)
+        return bits
+
+    def _capture(self, slot: _Slot, src: int):
+        """The push from ring ``src``, run on a side stream (the warm-up a
+        capture needs), then a capture of the push from each ring into one
+        graph each, sharing a memory pool (a stream replays them in turn,
+        and nothing a replay leaves in the pool is read after the next).
+        Returns the push's bits and the two replays.  A capture runs
+        nothing, and skips ``torch.cuda.graph``'s emptying of the cache."""
+        cur = torch.cuda.current_stream(self.device)
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(cur)
+        pool = torch.cuda.graph_pool_handle()
+        replays = []
+        with torch.cuda.stream(side):
+            bits = self._body(slot, src)
+            for ring in (0, 1):
+                graph = torch.cuda.CUDAGraph()
+                with trace.held() as counts:
+                    graph.capture_begin(pool=pool)
+                    try:
+                        static_bits = self._body(slot, ring)
+                    finally:
+                        graph.capture_end()
+                replays.append(functools.partial(_replay, graph, static_bits,
+                                                 counts))
+        cur.wait_stream(side)
+        bits.record_stream(cur)
+        return bits, tuple(replays)
+
+    def _body(self, slot: _Slot, src: int) -> torch.Tensor:
+        """One push on the slot's buffers, in place: the symbols' clamp, the
+        ACS into the tail of the other ring after ring ``src``'s newest
+        rows, the best states, the walk and the row count.  Returns the
+        push's (B, chunk) bits: a view of the walk's oldest ``chunk``
+        rows."""
+        spec, chunk, plain, route = (self.spec, self.chunk, self.plain,
+                                     self.backend)
+        B = slot.metrics.shape[1]
+        keep = self.window - chunk
+        old, ring = slot.rings[src], slot.rings[1 - src]
+        # the decoder's input clamp (helpers/test_helpers.h:88-93)
+        syms = torch.clamp(slot.symbols, spec.soft_low,
+                           spec.soft_high).reshape(B, chunk, spec.R)
+        if route == "plane":
+            ring[:, :keep].copy_(old[:, chunk:])
+            acs = plane.acs_plane_ref if plain else plane.acs_plane
+            metrics, _, _ = acs(spec, slot.metrics, syms, out=ring,
+                                row0=keep)
+        else:
+            ring[:keep].copy_(old[chunk:])
+            if route == "torch":
+                metrics, packed, _ = torch_core.acs_scan(spec, slot.metrics,
+                                                         syms)
+                ring[keep:].copy_(packed)
+            else:
+                acs = {"rotated": (rotated.acs_rotated,
+                                   rotated.acs_rotated_ref),
+                       "lane": (lane.acs_lane, lane.acs_lane_ref),
+                       }[route][plain]
+                metrics, _, _ = acs(spec, slot.metrics, syms, ring[keep:])
         # torch.argmin takes the first minimum, as jnp.argmin does
         best = torch.argmin(metrics, dim=0).to(torch.int32)
         rots = self._ring_rots() if route in ("rotated", "plane") else None
         if route == "plane":
             walk = (plane.walk_plane_frames_ref if plain
                     else plane.walk_plane_frames)
-            bits = walk(spec, history, best, rots=rots)[:, :chunk]
+            bits = walk(spec, ring, best, rots=rots)[:, :chunk]
         else:
             walk = (chainback.walk_rows_ref if plain or route == "torch"
                     else chainback.walk_rows)
-            rows = walk(spec, history, best, slot_order=rots is not None,
-                        rots=rots)
-            bits = rows[:chunk].t()
-        seen = state.host_rows
-        if seen is None:
-            with trace.host_read("streaming.rows_seen"):
-                seen = int(state.rows_seen)
-        new_state = StreamingState(metrics=metrics, history=history,
-                                   rows_seen=state.rows_seen + chunk,
-                                   host_rows=seen + chunk)
-        return new_state, bits.contiguous(), seen + chunk >= self.window
+            bits = walk(spec, ring, best, slot_order=rots is not None,
+                        rots=rots)[:chunk].t()
+        slot.metrics.copy_(metrics)
+        slot.rows_seen.add_(chunk)
+        return bits

@@ -21,8 +21,14 @@ lie on a profiled trace's timeline.
 Tracing is off by default.  Off, a span site costs one flag test and
 returns one shared no-op context; on, spans stay in memory until
 :func:`drain`.  Spans nest per thread.  Counters always count: kernel
-launches as ``launches.<kernel>`` and device-to-host reads of the
-program as ``host_reads.<site>``.  Nothing is written anywhere.
+launches as ``launches.<kernel>``, device-to-host reads of the
+program as ``host_reads.<site>``, and a stream's pushes as
+``streaming.graph_replays`` (replays of a captured CUDA graph),
+``streaming.eager_pushes`` (pushes run op by op, a capturing push among
+them) and ``streaming.graph_captures`` (a slot's capture, of its two
+graphs).  A capture launches nothing: the launches counted while a graph
+is captured are :func:`held` and :func:`add`-ed at each of its replays,
+so ``launches.<kernel>`` counts the kernels the device ran.  Nothing is written anywhere.
 
 :func:`timed_span` is a span that also times its body on the device for
 a caller's ``timings`` dict (CUDA events, synchronising at both ends).
@@ -30,6 +36,7 @@ a caller's ``timings`` dict (CUDA events, synchronising at both ends).
 
 from __future__ import annotations
 
+import contextlib
 import itertools
 import threading
 import time
@@ -38,8 +45,8 @@ from typing import Dict, List, NamedTuple, Optional
 import torch
 
 __all__ = ["Record", "Span", "enable", "disable", "span", "timed_span",
-           "host_read", "count", "counters", "reset_counters", "drain",
-           "self_ns"]
+           "host_read", "count", "add", "held", "counters", "reset_counters",
+           "drain", "self_ns"]
 
 _on = False
 # closed spans as plain tuples (Record's fields), which the garbage
@@ -181,8 +188,30 @@ def timed_span(name: str, detail: Optional[str], timings: Optional[dict],
 
 
 def count(name: str, n: int = 1) -> None:
-    """Add ``n`` to counter ``name`` (counters always count)."""
-    _counters[name] = _counters.get(name, 0) + n
+    """Add ``n`` to counter ``name`` (counters always count), or to the
+    dict of this thread's :func:`held` context."""
+    counts = getattr(_local, "held", None)
+    if counts is None:
+        counts = _counters
+    counts[name] = counts.get(name, 0) + n
+
+
+def add(counts: Dict[str, int]) -> None:
+    """Add each of ``counts`` to its counter."""
+    for name, n in counts.items():
+        count(name, n)
+
+
+@contextlib.contextmanager
+def held():
+    """A context whose counts in this thread go to the dict it yields
+    instead of the counters (a graph's capture: its replays :func:`add`
+    them); other threads count as before."""
+    outer, _local.held = getattr(_local, "held", None), {}
+    try:
+        yield _local.held
+    finally:
+        _local.held = outer
 
 
 def host_read(site: str):
