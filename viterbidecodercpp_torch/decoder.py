@@ -236,29 +236,35 @@ class ViterbiDecoder:
     def _reset(self, batch: int, starting_state: int,
                zero_fill: bool) -> DecoderState:
         with trace.span("decoder.reset"):
-            spec, dev = self.spec, self.device
-            rows = self.decision_rows
-            if self._plane:
-                # rows round up to the JAX plane kernel's time block, so a
-                # checkpoint's buffer has one shape in both packages; rows
-                # past decision_rows are never written or read
-                tb = plane.time_block_rows(spec)
-                rows = -(-rows // tb) * tb
-                shape = (batch, rows, spec.W // plane.COLS, plane.COLS)
-            else:
-                shape = (rows, spec.W, batch)
-            alloc = torch.zeros if zero_fill else torch.empty
-            return DecoderState(
-                metrics=torch_core.initial_metrics(spec, batch, starting_state,
-                                                   dev),
-                decisions=alloc(shape, dtype=torch.int32, device=dev),
-                accumulated_error=torch.zeros(batch, dtype=torch.int32,
-                                              device=dev),
-                bit_cursor=torch.zeros((), dtype=torch.int32, device=dev),
-                row_rots=(torch.zeros(rows, dtype=torch.int32, device=dev)
-                          if self._rotated or self._plane else None),
-                host_cursor=0,
-            )
+            return self._blank(
+                torch_core.initial_metrics(self.spec, batch, starting_state,
+                                           self.device),
+                self.decision_rows, zero_fill)
+
+    def _blank(self, metrics: torch.Tensor, rows: int,
+               zero_fill: bool) -> DecoderState:
+        """A carry at ``metrics`` with room for ``rows`` decision rows."""
+        spec, dev, batch = self.spec, self.device, metrics.shape[1]
+        if self._plane:
+            # rows round up to the JAX plane kernel's time block, so a
+            # checkpoint's buffer has one shape in both packages; rows
+            # past decision_rows are never written or read
+            tb = plane.time_block_rows(spec)
+            rows = -(-rows // tb) * tb
+            shape = (batch, rows, spec.W // plane.COLS, plane.COLS)
+        else:
+            shape = (rows, spec.W, batch)
+        alloc = torch.zeros if zero_fill else torch.empty
+        return DecoderState(
+            metrics=metrics,
+            decisions=alloc(shape, dtype=torch.int32, device=dev),
+            accumulated_error=torch.zeros(batch, dtype=torch.int32,
+                                          device=dev),
+            bit_cursor=torch.zeros((), dtype=torch.int32, device=dev),
+            row_rots=(torch.zeros(rows, dtype=torch.int32, device=dev)
+                      if self._rotated or self._plane else None),
+            host_cursor=0,
+        )
 
     # -- hot path ---------------------------------------------------------
     def update(self, state: DecoderState, symbols) -> DecoderState:
@@ -367,41 +373,51 @@ class ViterbiDecoder:
         guaranteed maximum-likelihood.
         """
         with trace.span("decoder.chainback"):
-            return self._chainback(state, total_bits, end_state, mode, block,
+            ends = torch.full((state.batch,), end_state, dtype=torch.int32,
+                              device=state.decisions.device)
+            return self._chainback(state, total_bits, ends, mode, block,
                                    overlap)
 
     def _chainback(self, state: DecoderState, total_bits: int,
-                   end_state: int, mode: str, block: int,
-                   overlap: int) -> torch.Tensor:
+                   ends: torch.Tensor, mode: str = "exact", block: int = 512,
+                   overlap: int = 128, first_bit: int = 0,
+                   n_bits: Optional[int] = None) -> torch.Tensor:
+        """The walk from the (B,) int32 end states ``ends`` after row
+        total_bits + K - 2, on the decoder's route: data bits [first_bit,
+        first_bit + n_bits) (n_bits defaults to the rest)."""
         if total_bits > self._traceback_length:
             raise ValueError("total_bits exceeds traceback_length")
         if mode not in ("exact", "truncated"):
             raise ValueError(f"unknown chainback mode {mode!r}")
-        ends = torch.full((state.batch,), end_state, dtype=torch.int32,
-                          device=state.decisions.device)
+        if n_bits is None:
+            n_bits = total_bits - first_bit
         if mode == "truncated":
             if not self._plane:
                 raise ValueError(
                     "mode='truncated' is for the big-state plane backend"
                     " (small codes' exact chainback is already parallel"
                     " across frames and faster than a truncated walk)")
-            return plane.chainback_plane_truncated(
+            bits = plane.chainback_plane_truncated(
                 self.spec, state.decisions, ends, total_bits,
                 state.row_rots, block, overlap)
         # slot-order rows: stream each row's recorded rotation; a state
         # without row_rots follows the one-shot schedule
-        if self._plane:
-            return plane.chainback_plane(self.spec, state.decisions, ends,
+        elif self._plane:
+            bits = plane.chainback_plane(self.spec, state.decisions, ends,
                                          total_bits, state.row_rots)
-        if self._rotated:
+        elif self._rotated or self._lane:
+            # these walks stop at the oldest row they read
             return chainback_ops.chainback(
                 self.spec, state.decisions, ends, total_bits,
-                slot_order=True, rots=state.row_rots)
-        if self._lane:
-            return chainback_ops.chainback(self.spec, state.decisions, ends,
-                                           total_bits, slot_order=False)
-        return torch_core.chainback_scan(self.spec, state.decisions, ends,
-                                         total_bits)
+                first_bit=first_bit, n_bits=n_bits,
+                slot_order=self._rotated,
+                rots=state.row_rots if self._rotated else None)
+        else:
+            bits = torch_core.chainback_scan(self.spec, state.decisions, ends,
+                                             total_bits)
+        if (first_bit, n_bits) == (0, total_bits):
+            return bits
+        return bits[:, first_bit:first_bit + n_bits].contiguous()
 
     def chainback_bytes(self, state: DecoderState, total_bits: int,
                         end_state: int = 0) -> np.ndarray:
@@ -451,3 +467,52 @@ class ViterbiDecoder:
         state = self.update(state, symbols)
         bits = self.chainback(state, total_bits, end_state)
         return bits, self.get_error(state, end_state), state.accumulated_error
+
+    def decode_tailbiting(self, symbols, total_bits: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor,
+                                     torch.Tensor]:
+        """Circular decode of tail-biting frames (3GPP TS 36.212 5.1.3.1:
+        the encoder starts from the frame's last K-1 bits, so its start
+        and end states are the same and unknown).
+
+        ``symbols``: (B, total_bits * R) soft symbols, e.g. the output of
+        :func:`~viterbidecodercpp_torch.ratematch.dematch`.  Every state
+        starts at the same metric, the trellis runs over three copies of
+        the frame (3L steps), each frame's walk starts at its first state
+        of least metric (as ``StreamingDecoder.push`` picks it) and
+        returns the middle copy's bits, by then independent of the
+        unknown start.  Returns (bits (B, total_bits), the best state's
+        metric (B,), the renormalisation total (B,)), as :meth:`decode`
+        does.  Needs total_bits >= K - 1.
+        """
+        with trace.span("decoder.tailbiting"):
+            return self._decode_tailbiting(symbols, int(total_bits))
+
+    def _decode_tailbiting(self, symbols, L: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]:
+        spec, n = self.spec, self.code.K - 1
+        symbols = torch.as_tensor(symbols, device=self.device)
+        if symbols.dim() != 2 or symbols.shape[1] != L * spec.R:
+            raise ValueError(f"symbols must be (B, {L * spec.R}) for "
+                             f"{L}-bit frames at R={spec.R}, got "
+                             f"{tuple(symbols.shape)}")
+        if L < n:
+            raise ValueError(f"a tail-biting frame needs total_bits >= "
+                             f"K-1 = {n}, got {L}")
+        B, rows = symbols.shape[0], 3 * L
+        # the walk covers all 3L rows (sticky growth, as decode's)
+        if self._traceback_length < rows - n:
+            self.set_traceback_length(rows - n)
+        state = self._blank(torch_core.equal_metrics(spec, B, self.device),
+                            rows, zero_fill=False)
+        state = self.update(state, symbols.repeat(1, 3))
+        # torch.argmin takes the first minimum, as push does
+        best = torch.argmin(state.metrics, dim=0)
+        metric = state.metrics.gather(0, best[None])[0]
+        with trace.span("decoder.chainback"):
+            bits = self._chainback(state, rows - n, best.to(torch.int32),
+                                   first_bit=L, n_bits=L)
+        trace.count("tailbiting.frames", B)
+        trace.count("tailbiting.rows", B * rows)
+        return bits, metric, state.accumulated_error

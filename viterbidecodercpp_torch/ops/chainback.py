@@ -141,17 +141,34 @@ def _walk(spec, packed, start, rows, slot_order, rots, valid, plain):
 
 
 def _chainback(spec, packed, end_state, total_bits, slot_order, rots,
-               plain):
+               plain, first_bit=0, n_bits=None):
     rows = total_bits + spec.K - 1
     if packed.dim() == 3 and packed.shape[0] < rows:
         raise ValueError("decision history shorter than total_bits + K - 1")
-    bits = _walk(spec, packed, end_state, rows, slot_order, rots, None,
+    if n_bits is None:
+        n_bits = total_bits - first_bit
+    if first_bit < 0 or n_bits < 0 or first_bit + n_bits > total_bits:
+        raise ValueError(f"data bits [{first_bit}, {first_bit + n_bits}) "
+                         f"lie outside [0, {total_bits})")
+    # the walk stops at the oldest row it reads: row first_bit + K - 1 of
+    # a later span, row 0 of the whole history
+    lo = first_bit + spec.K - 1 if first_bit else 0
+    if lo:
+        if slot_order and rots is None:
+            # the one-shot schedule of the whole history, before it is cut
+            rots = torch.arange(1, rows + 1, dtype=torch.int32,
+                                device=packed.device) % (spec.K - 1)
+        packed = packed[lo:rows]
+        rots = None if rots is None else rots[lo:rows]
+    bits = _walk(spec, packed, end_state, rows - lo, slot_order, rots, None,
                  plain)
-    return bits[spec.K - 1:].t().contiguous()
+    skip = first_bit + spec.K - 1 - lo
+    return bits[skip:skip + n_bits].t().contiguous()
 
 
 def chainback(spec: StaticSpec, packed: torch.Tensor,
               end_state: torch.Tensor, total_bits: int, *,
+              first_bit: int = 0, n_bits: Optional[int] = None,
               slot_order: bool = False,
               rots: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Trace back (B, total_bits) uint8 data bits (the contract of
@@ -159,11 +176,16 @@ def chainback(spec: StaticSpec, packed: torch.Tensor,
 
     packed: (T, W, B) int32 decision rows with T >= total_bits + K - 1
     (later rows are ignored); end_state: (B,) int32 walk start states.
+    ``first_bit``/``n_bits``: return only data bits [first_bit, first_bit
+    + n_bits) (n_bits defaults to the rest); the walk still starts at row
+    total_bits + K - 2 and stops at the oldest row it reads (a
+    tail-biting frame's middle copy).
     ``slot_order``/``rots``: see the module docstring.
     """
     with trace.span("ops.chainback"):
         return _chainback(spec, packed, end_state, total_bits, slot_order,
-                          rots, plain=False)
+                          rots, plain=False, first_bit=first_bit,
+                          n_bits=n_bits)
 
 
 def chainback_ref(spec: StaticSpec, packed: torch.Tensor,

@@ -24,6 +24,7 @@ from ..codes import CodeSpec, PunctureSpec, parity
 
 __all__ = [
     "encode_bits",
+    "encode_bits_tailbiting",
     "encode_symbols",
     "bytes_to_bits",
     "bits_to_bytes",
@@ -101,6 +102,21 @@ def _tap_delays(code: CodeSpec) -> Tuple[Tuple[int, ...], ...]:
     )
 
 
+def _convolve(code: CodeSpec, x: torch.Tensor,
+              head: torch.Tensor) -> torch.Tensor:
+    """(B, T) int32 bits, and the (B, K-1) bits before them -> (B, T, R)
+    int32 output bits."""
+    B, T = x.shape
+    xp = torch.cat([head, x], dim=1)                           # (B, T+K-1)
+    outs = []
+    for taps in _tap_delays(code):
+        acc = x.new_zeros(B, T)
+        for i in taps:
+            acc = acc + xp[:, code.K - 1 - i:code.K - 1 - i + T]
+        outs.append(acc & 1)
+    return torch.stack(outs, dim=-1)
+
+
 def encode_bits(code: CodeSpec, bits: torch.Tensor,
                 terminate: bool = True) -> torch.Tensor:
     """Encode (B, N) data bits -> (B, T, R) int32 output bits,
@@ -109,20 +125,26 @@ def encode_bits(code: CodeSpec, bits: torch.Tensor,
     Zero initial state; with ``terminate`` the K-1 zero tail bits are
     appended (helpers/test_helpers.h:54-60).
     """
-    B, N = bits.shape
+    B = bits.shape[0]
     x = bits.to(torch.int32)
     if terminate:
         x = torch.cat([x, x.new_zeros(B, code.K - 1)], dim=1)
-    T = x.shape[1]
     # delayed[i] = x shifted right by i with zero fill (initial state 0)
-    xp = torch.cat([x.new_zeros(B, code.K - 1), x], dim=1)    # (B, T+K-1)
-    outs = []
-    for taps in _tap_delays(code):
-        acc = x.new_zeros(B, T)
-        for i in taps:
-            acc = acc + xp[:, code.K - 1 - i:code.K - 1 - i + T]
-        outs.append(acc & 1)
-    return torch.stack(outs, dim=-1)                          # (B, T, R)
+    return _convolve(code, x, x.new_zeros(B, code.K - 1))
+
+
+def encode_bits_tailbiting(code: CodeSpec, bits: torch.Tensor
+                           ) -> torch.Tensor:
+    """Tail-biting encode (B, L) data bits -> (B, L, R) int32 output bits
+    (3GPP TS 36.212 5.1.3.1): the register starts from the frame's last
+    K-1 bits, so it ends where it started and no tail is sent.  L >= K-1.
+    """
+    L = bits.shape[1]
+    if L < code.K - 1:
+        raise ValueError(f"a tail-biting frame needs L >= K-1 = "
+                         f"{code.K - 1} bits, got {L}")
+    x = bits.to(torch.int32)
+    return _convolve(code, x, x[:, L - (code.K - 1):])
 
 
 def encode_symbols(code: CodeSpec, bits: torch.Tensor, high: int,

@@ -38,6 +38,7 @@ __all__ = [
     "StaticSpec",
     "make_static_spec",
     "initial_metrics",
+    "equal_metrics",
     "symmetric_amplitude",
     "spec_cache",
     "needs_big_state",
@@ -148,6 +149,13 @@ def initial_metrics(spec: StaticSpec, batch: int, starting_state: int = 0,
                    device=device)
     m[starting_state & (spec.S - 1), :] = spec.init_start
     return m
+
+
+def equal_metrics(spec: StaticSpec, batch: int, device="cpu") -> torch.Tensor:
+    """(S, B) int32 metric seed of a tail-biting frame, whose start state
+    is unknown: every state at ``init_start``."""
+    return torch.full((spec.S, batch), spec.init_start, dtype=torch.int32,
+                      device=device)
 
 
 def wrap_int32(x: torch.Tensor) -> torch.Tensor:
