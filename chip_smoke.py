@@ -6,7 +6,7 @@
 Phases, in order; any failure raises and exits non-zero:
 
 1. Device: requires ``torch.cuda.is_available()``, prints the card's
-   name and power limit (nvidia-smi), builds all seven CUDA kernels from
+   name and power limit (nvidia-smi), builds all eight CUDA kernels from
    ``viterbidecodercpp_torch/csrc`` with nvcc for sm_90a, one nvcc
    process per source, and the native host chain (``native/sigchain.cpp``)
    with g++, all started together (into ``viterbidecodercpp_torch/_build/``),
@@ -103,9 +103,17 @@ Phases, in order; any failure raises and exits non-zero:
    tiles a block and resident blocks), kernel and plain time, time a
    trellis step, bound and share, the call's kernels' device time and
    the host's time to enqueue the call.
+4f. The BER channel kernel (``csrc/awgn_channel.cu``) at the voyager-ber
+   cell's batch, Voyager SOFT8 B=16384 x 2048 bits at 6 dB: equal to its
+   plain version (``testsig.quantise`` of ``testsig.modulate_encode`` on
+   the same noise), kernel and plain time beside its bytes bound.
 4d. The BER loop's times (``ber.measure_point``): Voyager SOFT8, 2048-bit
    blocks, 6 dB (no error stop fires), 256 batches of 256 frames and 64
-   of 1024: decoded data bits/s (median of three points, host clock),
+   of 1024, after one batch of ``ber.draw_batch`` at each B held to the
+   plain chain (``awgn_quantize(modulate_encode(...))`` after the same
+   ``randint``: symbols, bits and the generator's state equal) and with
+   the channel kernel's launches counted, one a batch of the timed
+   points: decoded data bits/s (median of three points, host clock),
    ``decode`` alone at the same shape (CUDA events), the loop's overhead
    share, the device's idle share over 24 batches (``torch.profiler``),
    and one host-chain point's bits/s (4 batches of 256).
@@ -115,7 +123,10 @@ Phases, in order; any failure raises and exits non-zero:
    10^4 expected errors, at most 6e7 bits) and the Cassini SOFT16 0.5 dB
    host-chain point, each inside test_ber.py's window (1.3x, widened to
    5 sigma) of ``data_ber_reference_*.json`` and with at least one error;
-   the rotated, lane and plane kernels must have launched.
+   the rotated, lane and plane kernels must have launched, and the
+   channel kernel once a batch; before each point one batch of
+   ``ber.draw_batch`` at its shape (256 frames of its block) equal to the
+   plain chain as in phase 4d.
 5b. DAB FIC punctured decode (K=7 R=1/4, 21 x PI_16 + 3 x PI_15 + PI_X)
    in the three regimes on the card, as
    ``tools/torch_run_punctured_decoder.py`` runs it: 0 bit errors.
@@ -131,7 +142,8 @@ Phases, in order; any failure raises and exits non-zero:
    channel at 3 dB; the Voyager stream again on a (data=2, time=2) mesh;
    frame-DP of Voyager SOFT8, 1024 frames x 2042 bits a rank at 2 dB; and
    data-parallel BER points (``group=``), Voyager SOFT8, 2048-bit blocks,
-   256 frames a rank, 8 batches at 6 and 2 dB.  The parent holds every SP
+   256 frames a rank, 8 batches at 6 and 2 dB (the channel kernel must
+   have launched in them).  The parent holds every SP
    result to the single-process ``ViterbiDecoder.decode`` of the same
    stream on the card (0 halo mismatches), the frame-DP bits and error
    total to one decode of all ranks' frames and the ranks' own counts, and
@@ -165,8 +177,9 @@ Phases, in order; any failure raises and exits non-zero:
    read by the unmodified ``parse_benchmark.py`` and
    ``compare_benchmark.py`` in subprocesses (exit 0), and
    ``torch_profile_trace.py voyager`` (8 decodes; top device operations,
-   idle share).  All seven kernels must
-   have launched; their counts join the kernels line.
+   idle share).  All seven decode kernels must
+   have launched (none of these tools runs the BER channel kernel); their
+   counts join the kernels line.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it
 is a JSON object with one entry per kernel (kernel launches on the main
@@ -213,7 +226,11 @@ KERNELS = {
                          "viterbidecodercpp_tpu/ops/bigstate_pallas.py:713"),
     "lane_acs": ("viterbidecodercpp_torch/csrc/lane_acs.cu",
                  "viterbidecodercpp_tpu/ops/acs_pallas.py:125"),
+    # none: XLA fuses the JAX package's encode -> AWGN -> quantise chain
+    "awgn_channel": ("viterbidecodercpp_torch/csrc/awgn_channel.cu", None),
 }
+# the kernels of a decode (every tool of phase 7 launches them)
+DECODE_KERNELS = tuple(k for k in KERNELS if k != "awgn_channel")
 # (code, mode, B, window, chunk, route, the route's kernels)
 STREAMS = (
     ("Voyager", "SOFT16", 1024, 256, 64, "rotated",
@@ -311,7 +328,9 @@ BER_HOST_CHAIN = ("Cassini", "SOFT16", 0.5, 3)
 # phase 5 draws for 10^4 (same cap, same window)
 BER_WANT_ERRORS = 10_000
 BER_KERNELS = ("rotated_acs", "chainback", "lane_acs", "plane_acs",
-               "plane_walk")
+               "plane_walk", "awgn_channel")
+# phase 4f: the channel kernel at the voyager-ber cell's batch
+CHANNEL_B, CHANNEL_BITS = 16384, 2048
 
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet; the Hopper white paper
@@ -1187,10 +1206,78 @@ def phase4e(pt, dev, rng, card: str) -> dict:
     return out
 
 
-def phase4d(pt, dev, card: str) -> dict:
+def channel_check(code, cfg, EbNo: float, B: int, N: int, seed: int,
+                  dev) -> int:
+    """One batch of ``ber.draw_batch`` (the channel kernel after its
+    draws) against the plain chain, ``awgn_quantize(modulate_encode(...))``
+    after the same ``randint``, from the same generator state: data bits,
+    symbols and the generator's state after it equal.  Returns the largest
+    difference of the symbols (0)."""
+    from viterbidecodercpp_torch import ber
+    from viterbidecodercpp_torch.utils import testsig
+    g1, g2 = (torch.Generator(device=dev) for _ in range(2))
+    g1.manual_seed(seed)
+    g2.manual_seed(seed)
+    syms, tx = ber.draw_batch(code, cfg, EbNo, g1, B, N)
+    want_tx = torch.randint(0, 2, (B, N), generator=g2, dtype=torch.uint8,
+                            device=dev)
+    want = testsig.awgn_quantize(testsig.modulate_encode(code, want_tx), g2,
+                                 EbNo, code.R, cfg)
+    label = f"the channel kernel, {code.name} B={B} N={N} at {EbNo} dB"
+    require(torch.equal(tx, want_tx), f"{label}: data bits != plain chain")
+    e = max_abs_diff(syms, want)
+    require(e == 0, f"{label}: symbols != plain chain (by {e})")
+    require(torch.equal(g1.get_state(), g2.get_state()),
+            f"{label}: the generator's state != the plain chain's")
+    return e
+
+
+def phase4f(pt, dev) -> dict:
+    """The channel kernel at the voyager-ber cell's batch (Voyager SOFT8,
+    6 dB, B=CHANNEL_B x CHANNEL_BITS): equal to its plain version,
+    ``testsig.quantise(testsig.modulate_encode(...))`` on the same noise,
+    and both timed (noise drawn beforehand, so neither counts ``randn``).
+    Returns the kernels line's numbers: max_abs_err, ms, plain_ms, bound
+    (its bytes: the data bits, the noise read, the symbols written; its
+    few operations a symbol lie far below them) and the shape."""
+    from viterbidecodercpp_torch.ops import channel
+    from viterbidecodercpp_torch.utils import testsig
+    code = pt.get_code(LOOP_CODE)
+    cfg = pt.get_decode_config(pt.DecodeType(LOOP_MODE), code.R)
+    B, N = CHANNEL_B, CHANNEL_BITS
+    T = N + code.K - 1
+    g = torch.Generator(device=dev)
+    g.manual_seed(5)
+    bits = torch.randint(0, 2, (B, N), generator=g, dtype=torch.uint8,
+                         device=dev)
+    noise = torch.randn((B, T, code.R), generator=g, dtype=torch.float32,
+                        device=dev)
+    args = (noise, *testsig.channel_scalars(LOOP_EBNO_DB, code.R, cfg, dev),
+            cfg.soft_decision_low, cfg.soft_decision_high)
+
+    def kernel():
+        return channel.encode_awgn_quantize(code, bits, *args)
+
+    def plain():
+        return testsig.quantise(testsig.modulate_encode(code, bits), *args)
+
+    e = max_abs_diff(kernel(), plain())
+    require(e == 0, f"channel kernel != plain at B={B} N={N}")
+    ms, plain_ms = time_ms(kernel), time_ms(plain, PLAIN_REPS, 1)
+    nbytes = B * N + 2 * 4 * B * T * code.R
+    del bits, noise, args
+    torch.cuda.empty_cache()
+    return {"max_abs_err": e, "ms": ms, "plain_ms": plain_ms,
+            "bound": bound(0, nbytes),
+            "shape": f"{LOOP_CODE} {LOOP_MODE} B={B} T={T} at "
+                     f"{LOOP_EBNO_DB} dB"}
+
+
+def phase4d(pt, dev, card: str, launches: dict, err: dict) -> dict:
     """The BER loop's times: ``measure_point`` against ``decode`` alone at
-    B=256 and B=1024, the device's idle share in the loop, and one
-    host-chain point."""
+    B=256 and B=1024 (the channel kernel held to the plain chain at both
+    and its launches counted, one a batch), the device's idle share in
+    the loop, and one host-chain point."""
     from viterbidecodercpp_torch import ber
     code = pt.get_code(LOOP_CODE)
     cfg = pt.get_decode_config(pt.DecodeType(LOOP_MODE), code.R)
@@ -1212,8 +1299,12 @@ def phase4d(pt, dev, card: str) -> dict:
                 block_bits=LOOP_BLOCK, batch=B,
                 max_bits=batches * B * LOOP_BLOCK, device=dev)
 
+        e = channel_check(code, cfg, LOOP_EBNO_DB, B, LOOP_BLOCK, 11 + B,
+                          dev)
+        err["awgn_channel"] = max(err.get("awgn_channel", 0), e)
         point(4, 0)                                  # warm-up
         secs = []
+        reset_counts()
         for rep in range(3):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1221,6 +1312,11 @@ def phase4d(pt, dev, card: str) -> dict:
             secs.append(time.perf_counter() - t0)
             require(p.total_bits == budget,
                     f"BER loop B={B} at {LOOP_EBNO_DB} dB stopped early: {p}")
+        counts = read_counts()
+        require(counts["awgn_channel"] == 3 * n,
+                f"BER loop B={B}: {counts['awgn_channel']} channel launches "
+                f"in {3 * n} batches")
+        add_counts(launches, counts, ("awgn_channel",), f"the BER loop B={B}")
         syms, _ = ber.draw_batch(code, cfg, LOOP_EBNO_DB, gen(5), B,
                                  LOOP_BLOCK)
         dec = pt.ViterbiDecoder(code, cfg, traceback_length=LOOP_BLOCK,
@@ -1236,6 +1332,10 @@ def phase4d(pt, dev, card: str) -> dict:
                "overhead_share": 1 - dec_ms / batch_ms,
                f"profile_{LOOP_PROFILE_BATCHES}_batches": prof}
         out[f"B={B}"] = row
+        print(f"phase4d BER loop {LOOP_CODE} {LOOP_MODE} block {LOOP_BLOCK} "
+              f"B={B}: the channel kernel == the plain chain (symbols, bits, "
+              f"generator state), {counts['awgn_channel']} launches in "
+              f"{3 * n} batches", flush=True)
         print(f"phase4d BER loop {LOOP_CODE} {LOOP_MODE} block {LOOP_BLOCK} "
               f"B={B}, {n} batches at {LOOP_EBNO_DB} dB: measure_point "
               f"{row['bits_per_s']:.4e} decoded bits/s ({batch_ms:.4f} ms a "
@@ -1290,9 +1390,11 @@ def ber_window(r: float, errors: int) -> tuple:
             max(r * 1.3, r * (1 + sigma_rel)))
 
 
-def phase5(pt, dev, launches: dict, seed: int) -> dict:
+def phase5(pt, dev, launches: dict, err: dict, seed: int) -> dict:
     """The BER engine on the card at every point tests/test_ber.py gates,
-    and its host-chain point, each held against the reference curves."""
+    and its host-chain point, each held against the reference curves;
+    before each point one batch of its channel kernel against the plain
+    chain at the point's shape."""
     import zlib
     from viterbidecodercpp_torch import ber
     rows, outside = [], []
@@ -1313,7 +1415,7 @@ def phase5(pt, dev, launches: dict, seed: int) -> dict:
         if not ok:
             outside.append(label)
 
-    reset_counts()
+    points_counts, checked = [], 0
     t0 = time.perf_counter()
     for name, regimes in BER_POINTS.items():
         code = pt.get_code(name)
@@ -1325,15 +1427,28 @@ def phase5(pt, dev, launches: dict, seed: int) -> dict:
             g.manual_seed(zlib.crc32(f"{name}/{mode}".encode()) + seed)
             for EbNo in points:
                 r = ref[EbNo]
+                e = channel_check(code, cfg, EbNo, 256, block,
+                                  zlib.crc32(f"{name}/{mode}/{EbNo}".encode()),
+                                  dev)
+                err["awgn_channel"] = max(err["awgn_channel"], e)
+                checked += 1
+                reset_counts()
                 torch.cuda.reset_peak_memory_stats(dev)
                 p = ber.measure_point(code, cfg, EbNo, generator=g,
                                       block_bits=block,
                                       max_bits=ber_budget(r),
                                       max_errors=100_000, device=dev)
                 check(f"{name} {mode} {EbNo} dB block {block}", r, p)
+                points_counts.append(read_counts())
+                batches = p.total_bits // (256 * block)
+                require(points_counts[-1]["awgn_channel"] == batches,
+                        f"{name} {mode} {EbNo} dB: "
+                        f"{points_counts[-1]['awgn_channel']} channel "
+                        f"launches in {batches} batches")
     name, mode, EbNo, hc_seed = BER_HOST_CHAIN
     code = pt.get_code(name)
     r = ber_reference(name, mode)[EbNo]
+    reset_counts()
     torch.cuda.reset_peak_memory_stats(dev)
     p = ber.measure_point_host_chain(
         code, pt.get_decode_config(pt.DecodeType(mode), code.R), EbNo,
@@ -1342,7 +1457,8 @@ def phase5(pt, dev, launches: dict, seed: int) -> dict:
     check(f"{name} {mode} {EbNo} dB block 1024 host chain", r, p)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    counts = read_counts()
+    points_counts.append(read_counts())
+    counts = {k: sum(c[k] for c in points_counts) for k in KERNELS}
     add_counts(launches, counts, BER_KERNELS, "the BER engine")
     require(not outside, f"{len(outside)} BER points outside their windows: "
                          f"{outside}")
@@ -1350,7 +1466,9 @@ def phase5(pt, dev, launches: dict, seed: int) -> dict:
     print(f"phase5 ok: {len(rows)} BER points ({len(rows) - 1} on the card, "
           f"one host chain) inside tests/test_ber.py's windows of the "
           f"reference curves; {bits} bits in {secs:.2f} s; launches "
-          f"{ {k: counts[k] for k in BER_KERNELS} }", flush=True)
+          f"{ {k: counts[k] for k in BER_KERNELS} }; the channel kernel == "
+          f"the plain chain at {checked} points' shapes (symbols, bits, "
+          f"generator state)", flush=True)
     return {"points": rows, "bits": bits, "seconds": secs}
 
 
@@ -1665,7 +1783,8 @@ def phase6(pt, dev, card: str, launches: dict, err: dict, seed: int,
         counts = {k: sum(r["launches"][k] for r in ranks) for k in KERNELS}
         add_counts(launches, counts,
                    sorted({k for route in ROUTE_KERNELS.values()
-                           for k in route}), f"phase 6's {backend} fleet")
+                           for k in route} | {"awgn_channel"}),
+                   f"phase 6's {backend} fleet")
         for r in ranks:
             for key, c in r["check"].items():
                 for name in ROUTE_KERNELS[key.split("/")[0]]:
@@ -1906,7 +2025,7 @@ def phase7(dev, launches: dict, card: str) -> dict:
           flush=True)
     torch.cuda.synchronize()
     counts = read_counts()
-    add_counts(launches, counts, KERNELS, "phase 7 (the harness)")
+    add_counts(launches, counts, DECODE_KERNELS, "phase 7 (the harness)")
     seconds["total"] = time.perf_counter() - t0
     print(f"phase7 ok: the harness on the card in {seconds['total']:.2f} s; "
           f"launches {counts} on {card}", flush=True)
@@ -2192,6 +2311,11 @@ def main() -> None:
                                  block.numel() / (push_ms / 1e3)})
     # -- phase 4e: the plane ACS past K=17 beside its bounds ---------------
     big_times = phase4e(pt, dev, rng, card)
+    # -- phase 4f: the channel kernel at the BER cell's batch --------------
+    ch = phase4f(pt, dev)
+    err["awgn_channel"] = ch["max_abs_err"]
+    ms["awgn_channel"] = ch["ms"]
+    plain_ms["awgn_channel"] = ch["plain_ms"]
     wide = big_times[f"K={WIDE_K[0]}"]
     ms["plane_acs_global"] = wide["ms"]
     plain_ms["plane_acs_global"] = wide["plain_ms"]
@@ -2207,6 +2331,7 @@ def main() -> None:
             sum(min(b0 + 512 + 128, nb) - b0 for b0 in tiles), Bb, Nb, 0),
         "lane_acs": acs_bound(spec_l.S, Bl, Tl, Rl, spec_l.W),
         "plane_acs_global": (wide["bound_ms"], wide["bound_by"]),
+        "awgn_channel": ch["bound"],
     }
     shapes = {"rotated_acs": f"Voyager SOFT8 B={B} T={T}",
               "chainback": f"Voyager SOFT8 B={B} T={T}",
@@ -2216,7 +2341,8 @@ def main() -> None:
                                   f"block 512 overlap 128",
               "lane_acs": f"Basic K=5 SOFT16 B={Bl} T={Tl}",
               "plane_acs_global": f"K={WIDE_K[0]} SOFT16 B={wide['B']} "
-                                  f"T={wide['T']}"}
+                                  f"T={wide['T']}",
+              "awgn_channel": ch["shape"]}
     for name in KERNELS:
         plain_reps = REPS if name in ("rotated_acs", "chainback") \
             else PLAIN_REPS
@@ -2245,12 +2371,12 @@ def main() -> None:
     mark("phase 4")
 
     # -- phase 4d: the BER loop's times -----------------------------------
-    ber_loop = phase4d(pt, dev, card)
+    ber_loop = phase4d(pt, dev, card, launches, err)
 
     mark("phase 4d")
 
     # -- phase 5: the BER engine against the reference curves -------------
-    ber_points = phase5(pt, dev, launches, args.seed)
+    ber_points = phase5(pt, dev, launches, err, args.seed)
 
     # -- phase 5b: DAB FIC punctured decode ---------------------------------
     phase5b(dev, launches)
@@ -2273,7 +2399,8 @@ def main() -> None:
          "ms": ms[name], "plain_ms": plain_ms[name],
          "bound_ms": bounds[name][0], "bound_by": bounds[name][1],
          "bound_share": bounds[name][0] / ms[name],
-         # no single PyTorch call computes an ACS or a traceback
+         # no single PyTorch call computes an ACS, a traceback or the
+         # channel
          "library_ms": None}
         for name, (src, tpu) in KERNELS.items()],
         "decode_ms": decode_ms, "decoded_symbols_per_s": rate,

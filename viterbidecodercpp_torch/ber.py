@@ -119,16 +119,19 @@ def capped_budgets(max_bits: int, max_errors: int, step: int
 
 
 def draw_batch(code: CodeSpec, config: DecoderConfig, EbNo_dB: float,
-               generator: torch.Generator, batch: int, block_bits: int
+               generator: torch.Generator, batch: int, block_bits: int,
+               scalars: Optional[tuple] = None
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """One batch of the channel on the generator's device: (batch,
     block_bits) uint8 data bits, and their (batch, T, R) int32 soft
     symbols (encoded with the K-1 tail, AWGN at ``EbNo_dB``, quantised
-    to the config's soft range)."""
+    to the config's soft range; on a card one kernel after the draws,
+    ``testsig.encode_awgn_quantize``, which takes ``scalars``, the
+    point's ``testsig.channel_scalars``, where given)."""
     tx = torch.randint(0, 2, (batch, block_bits), generator=generator,
                        dtype=torch.uint8, device=generator.device)
-    syms = testsig.awgn_quantize(testsig.modulate_encode(code, tx),
-                                 generator, EbNo_dB, code.R, config)
+    syms = testsig.encode_awgn_quantize(code, tx, generator, EbNo_dB, config,
+                                        scalars)
     return syms, tx
 
 
@@ -179,6 +182,8 @@ def measure_point(code: CodeSpec, config: DecoderConfig, EbNo_dB: float, *,
         world = dist.get_world_size(group)
     step = world * batch * block_bits
     max_bits, max_errors = capped_budgets(max_bits, max_errors, step)
+    # the quantiser's scalars, made once a point on its device
+    scalars = testsig.channel_scalars(EbNo_dB, code.R, config, dev)
     t0 = time.perf_counter()
 
     def expired() -> bool:
@@ -192,7 +197,7 @@ def measure_point(code: CodeSpec, config: DecoderConfig, EbNo_dB: float, *,
         # clock (or none, without a timeout of its own) set it
         while bits < stop_bits and errors < max_errors and not fired:
             syms, tx = draw_batch(code, config, EbNo_dB, generator, batch,
-                                  block_bits)
+                                  block_bits, scalars)
             e = decode_errors(dec, syms, tx)
             if group is None:
                 with trace.host_read("ber.counts"):

@@ -27,12 +27,15 @@ import math
 import torch
 
 from ..codes import CodeSpec
-from ..ops import encoder
+from ..ops import channel, encoder
 
 __all__ = [
     "awgn_sigma",
     "modulate_encode",
     "awgn_quantize",
+    "channel_scalars",
+    "quantise",
+    "encode_awgn_quantize",
     "round_half_away",
     "count_bit_errors",
     "add_noise",
@@ -63,6 +66,40 @@ def modulate_encode(code: CodeSpec, bits: torch.Tensor,
     return torch.where(y == 1, 1.0, -1.0).to(torch.float32)
 
 
+def _soft_range(config) -> tuple:
+    """(high, low) of anything carrying the soft range: a DecoderConfig
+    (.soft_decision_high/low) or a torch_core.StaticSpec (.soft_high/low)."""
+    high = getattr(config, "soft_decision_high", None)
+    if high is None:
+        return config.soft_high, config.soft_low
+    return high, config.soft_decision_low
+
+
+def channel_scalars(EbNo_dB: float, code_rate: int, config,
+                    device) -> tuple:
+    """The quantiser's 0-d float32 tensors on ``device``: (sigma, scale,
+    mean), scale = mag * norm with norm = 1 / sqrt(1 + sigma^2) the
+    noisy-signal energy, each made by fills and device ops (a copy from
+    the host would sync the device)."""
+
+    def f32(x):
+        return torch.full((), x, dtype=torch.float32, device=device)
+
+    high, low = _soft_range(config)
+    sigma = f32(awgn_sigma(EbNo_dB, code_rate))
+    norm = 1.0 / torch.sqrt(1.0 + sigma * sigma)
+    return sigma, f32((high - low) / 2.0) * norm, f32((high + low) / 2.0)
+
+
+def quantise(float_syms: torch.Tensor, noise: torch.Tensor,
+             sigma: torch.Tensor, scale: torch.Tensor, mean: torch.Tensor,
+             low: int, high: int) -> torch.Tensor:
+    """``float_syms`` plus ``sigma * noise``, scaled to the soft range
+    and rounded half away from zero: int32 symbols in [low, high]."""
+    q = round_half_away((float_syms + sigma * noise) * scale + mean)
+    return torch.clamp(q, low, high).to(torch.int32)
+
+
 def awgn_quantize(float_syms: torch.Tensor, generator: torch.Generator,
                   EbNo_dB: float, code_rate: int, config) -> torch.Tensor:
     """Add AWGN and quantise to the config's soft-decision integer range
@@ -70,26 +107,36 @@ def awgn_quantize(float_syms: torch.Tensor, generator: torch.Generator,
     ``config`` is anything carrying the soft range: a DecoderConfig
     (.soft_decision_high/low) or a torch_core.StaticSpec
     (.soft_high/low)."""
-    high = getattr(config, "soft_decision_high", None)
-    if high is None:
-        high, low = config.soft_high, config.soft_low
-    else:
-        low = config.soft_decision_low
+    high, low = _soft_range(config)
     dev = float_syms.device
-
-    def f32(x):
-        # a fill, not a copy from the host: a copy would sync the device
-        return torch.full((), x, dtype=torch.float32, device=dev)
-
-    sigma = f32(awgn_sigma(EbNo_dB, code_rate))
+    scalars = channel_scalars(EbNo_dB, code_rate, config, dev)
     noise = torch.randn(float_syms.shape, generator=generator,
                         dtype=torch.float32, device=dev)
-    noisy = float_syms + sigma * noise
-    mean = (high + low) / 2.0
-    mag = (high - low) / 2.0
-    norm = 1.0 / torch.sqrt(1.0 + sigma * sigma)
-    q = round_half_away(noisy * (f32(mag) * norm) + f32(mean))
-    return torch.clamp(q, low, high).to(torch.int32)
+    return quantise(float_syms, noise, *scalars, low, high)
+
+
+def encode_awgn_quantize(code: CodeSpec, bits: torch.Tensor,
+                         generator: torch.Generator, EbNo_dB: float,
+                         config, scalars: tuple = None) -> torch.Tensor:
+    """Encode (B, N) data bits with the K-1 tail, add AWGN at ``EbNo_dB``
+    and quantise: ``awgn_quantize(modulate_encode(code, bits), generator,
+    EbNo_dB, code.R, config)``, bit for bit and with the same draw from
+    ``generator``.  CPU tensors run that chain; CUDA tensors draw the same
+    noise and run the rest as one kernel (``ops/channel.py``), with
+    ``scalars``, :func:`channel_scalars` of the same arguments, where the
+    caller has made them already."""
+    if bits.device.type != "cuda":
+        return awgn_quantize(modulate_encode(code, bits), generator, EbNo_dB,
+                             code.R, config)
+    high, low = _soft_range(config)
+    dev = bits.device
+    if scalars is None:
+        scalars = channel_scalars(EbNo_dB, code.R, config, dev)
+    B, N = bits.shape
+    noise = torch.randn((B, N + code.K - 1, code.R), generator=generator,
+                        dtype=torch.float32, device=dev)
+    return channel.encode_awgn_quantize(code, bits, noise, *scalars, low,
+                                        high)
 
 
 def add_noise(symbols: torch.Tensor, generator: torch.Generator,
