@@ -16,6 +16,7 @@ with none.  The kernel-vs-plain tests need a card (marked ``cuda``).
 """
 
 import contextlib
+import functools
 
 import numpy as np
 import pytest
@@ -162,6 +163,9 @@ def test_occupancy_check_prints_caches_and_raises(monkeypatch, capsys):
             return 0
 
     monkeypatch.setattr(_build, "load", lambda name: Lib)
+    # a cache of bound launchers of the test's own, which drops the fake
+    monkeypatch.setattr(_build, "kernel", functools.lru_cache(maxsize=None)(
+        _build.kernel.__wrapped__))
     monkeypatch.setattr(torch.cuda, "device",
                         lambda dev: contextlib.nullcontext())
     monkeypatch.setattr(plane, "RESIDENT_BLOCKS", {})

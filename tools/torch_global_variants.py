@@ -124,8 +124,10 @@ def main() -> None:
     load = _build.load
 
     def use(name):
-        # each variant has its own registers, so its own resident blocks
+        # each variant has its own registers, so its own resident blocks,
+        # and its own launchers to bind
         plane.RESIDENT_BLOCKS.clear()
+        _build.kernel.cache_clear()
         _build.load = (lambda n: libs[name][0] if n == "plane_acs_global"
                        else load(n))
 
@@ -168,6 +170,7 @@ def main() -> None:
             torch.cuda.empty_cache()
     finally:
         _build.load = load
+        _build.kernel.cache_clear()
         plane.RESIDENT_BLOCKS.clear()
     line = json.dumps(res)
     if args.out:

@@ -345,8 +345,8 @@ extern "C" int vdt_plane_acs_global(const void* m_in, const void* sym,
                                     int high, int low, int max_error,
                                     int cap, int thr, int saturating,
                                     int phase0, int n_phys, int row0,
-                                    void* stream, int grid,
-                                    int tiles_per_block) {
+                                    int grid, int tiles_per_block,
+                                    void* stream) {
   const int n = K - 1;
   if (n < VDT_MIN_N || n > VDT_MAX_N || R < 1 || R > VDT_MAX_R || B < 1 ||
       B > 65535 || T < 0 || phase0 < 0 || phase0 >= n || row0 < 0 ||

@@ -10,21 +10,14 @@ one ``chainback``.  As in the JAX package the carry is explicit data
 and the same ``.npz`` checkpoint format, so a stream checkpointed by one
 package continues in the other.
 
-Every call is batched over ``B`` independent frames.  Routing by state
-count S = 2**(K-1):
-
-  * 64 <= S <= 4096 (K = 7..13): the rotated in-place ACS kernel and the
-    slot-order traceback walk (ops/rotated.py, ops/chainback.py);
-  * S > 4096 (K >= 14): the plane ACS kernels (a block or a cluster of
-    blocks up to K=19, global-memory metrics above) and the plane walks,
-    exact or truncated (ops/plane.py);
-  * S <= 32 (K = 2..6): the lane ACS kernel and the state-order walk
-    (ops/lane.py, ops/chainback.py).
-
-The kernel backends launch CUDA kernels on a CUDA device and run their
-plain versions on the CPU.  The kernels take rates up to 1/16: on a
-CUDA device a code with R > 16 is refused at construction
-(``NotImplementedError``) unless ``backend="torch"``.
+Every call is batched over ``B`` independent frames, on the route that
+ops/route.py picks at construction by state count S = 2**(K-1): the
+rotated, plane or lane kernels (see :class:`ViterbiDecoder`), launched on
+a CUDA device and run as their plain versions on the CPU.
+``select_backend`` and ``resolve_device`` live there and are re-exported
+here.  The kernels take rates up to 1/16: on a CUDA device a code with
+R > 16 is refused at construction (``NotImplementedError``) unless
+``backend="torch"``.
 """
 
 from __future__ import annotations
@@ -38,8 +31,8 @@ import torch
 from . import trace
 from .codes import CodeSpec
 from .config import DecoderConfig, DecodeType, get_decode_config
-from .ops import bigstate, lane, plane, rotated, torch_core
-from .ops import chainback as chainback_ops
+from .ops import bigstate, torch_core
+from .ops.route import resolve_device, route_for, select_backend
 
 __all__ = ["DecoderState", "ViterbiDecoder", "select_backend",
            "resolve_device"]
@@ -111,59 +104,6 @@ class DecoderState:
             return cls.from_numpy({f: z[f] for f in z.files}, device)
 
 
-BACKENDS = ("rotated", "plane", "lane", "torch")
-
-
-def resolve_device(device) -> torch.device:
-    """``device`` as a torch.device with its card index; raises without a
-    card (no fallback to the CPU) and for a device other than a card or
-    the CPU."""
-    dev = torch.device(device)
-    if dev.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: pass device='cpu' to run on "
-                               "the CPU")
-        if dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-    elif dev.type != "cpu":
-        raise ValueError(f"unsupported device {dev}")
-    return dev
-
-
-def select_backend(spec: torch_core.StaticSpec, device: torch.device,
-                   backend: str = "auto") -> str:
-    """Resolve ``backend`` for a spec on a device (routing by state count,
-    see the module docstring); raises for a named backend outside its
-    class and, on a CUDA device, for a kernel backend at R > 16."""
-    S = spec.S
-    if device.type == "cuda" and spec.R > torch_core.KERNEL_MAX_RATE \
-            and backend in ("auto", "rotated", "plane", "lane"):
-        raise NotImplementedError(
-            f"no CUDA kernel for rate 1/{spec.R}: the ACS kernels take "
-            f"R <= {torch_core.KERNEL_MAX_RATE} (their tap masks and "
-            f"branch-pattern tables); run such a code with backend=\"torch\" "
-            f"(the plain scan, on the card or the CPU)")
-    in_class = rotated.ROTATED_MIN_STATES <= S <= torch_core.MAX_LANE_STATES
-    if backend == "auto":
-        # S = 2^(K-1): the three classes cover every K >= 2
-        if in_class:
-            return "rotated"
-        return "plane" if plane.supports(spec) else "lane"
-    if backend not in BACKENDS:
-        raise ValueError(f"unknown backend {backend!r}")
-    if backend == "rotated" and not in_class:
-        raise ValueError(f"the rotated backend covers "
-                         f"{rotated.ROTATED_MIN_STATES} <= S <= "
-                         f"{torch_core.MAX_LANE_STATES}, got S={S}")
-    if backend == "plane" and not plane.supports(spec):
-        raise ValueError(f"the plane backend covers "
-                         f"S > {torch_core.MAX_LANE_STATES}, got S={S}")
-    if backend == "lane" and not lane.supports(spec):
-        raise ValueError(f"the lane backend covers S <= "
-                         f"{lane.MAX_LANE_KERNEL_STATES}, got S={S}")
-    return backend
-
-
 class ViterbiDecoder:
     """Batched Viterbi decoder for one (code, config) pair.
 
@@ -200,13 +140,8 @@ class ViterbiDecoder:
         self.config = config
         self.spec = torch_core.make_static_spec(code, config)
         self.device = torch.device(device)
-        if self.device.type not in ("cpu", "cuda"):
-            raise ValueError(f"unsupported device {self.device}")
-        self.backend = backend = select_backend(self.spec, self.device,
-                                                backend)
-        self._rotated = backend == "rotated"
-        self._plane = backend == "plane"
-        self._lane = backend == "lane"
+        self._route = route_for(self.spec, self.device, backend)
+        self.backend = self._route.name
         self._traceback_length = int(traceback_length)
 
     # -- capacity ---------------------------------------------------------
@@ -244,25 +179,18 @@ class ViterbiDecoder:
     def _blank(self, metrics: torch.Tensor, rows: int,
                zero_fill: bool) -> DecoderState:
         """A carry at ``metrics`` with room for ``rows`` decision rows."""
-        spec, dev, batch = self.spec, self.device, metrics.shape[1]
-        if self._plane:
-            # rows round up to the JAX plane kernel's time block, so a
-            # checkpoint's buffer has one shape in both packages; rows
-            # past decision_rows are never written or read
-            tb = plane.time_block_rows(spec)
-            rows = -(-rows // tb) * tb
-            shape = (batch, rows, spec.W // plane.COLS, plane.COLS)
-        else:
-            shape = (rows, spec.W, batch)
+        route, dev, batch = self._route, self.device, metrics.shape[1]
+        rows = route.buffer_rows(rows)
         alloc = torch.zeros if zero_fill else torch.empty
         return DecoderState(
             metrics=metrics,
-            decisions=alloc(shape, dtype=torch.int32, device=dev),
+            decisions=alloc(route.rows_shape(batch, rows), dtype=torch.int32,
+                            device=dev),
             accumulated_error=torch.zeros(batch, dtype=torch.int32,
                                           device=dev),
             bit_cursor=torch.zeros((), dtype=torch.int32, device=dev),
             row_rots=(torch.zeros(rows, dtype=torch.int32, device=dev)
-                      if self._rotated or self._plane else None),
+                      if route.slot_order else None),
             host_cursor=0,
         )
 
@@ -276,7 +204,7 @@ class ViterbiDecoder:
             return self._update(state, symbols)
 
     def _update(self, state: DecoderState, symbols) -> DecoderState:
-        spec = self.spec
+        spec, route = self.spec, self._route
         n = spec.K - 1
         symbols = torch.as_tensor(symbols, device=self.device)
         if symbols.dim() != 2:
@@ -288,10 +216,8 @@ class ViterbiDecoder:
         if B != state.batch:
             raise ValueError(f"symbols carry {B} frames, the state {state.batch}")
         nbits = N // self.code.R
-        phys = state.decisions.shape[1 if self._plane else 0]
-        # the plane buffer is padded past decision_rows with rows that are
-        # never read, so its logical capacity is the smaller count
-        capacity = min(phys, self.decision_rows) if self._plane else phys
+        phys = state.decisions.shape[route.time_axis]
+        capacity = route.capacity(phys, self.decision_rows)
         # Mirror of the reference's capacity assert
         # (viterbi_decoder_core.h:180-186): a write past the decision
         # buffer would otherwise corrupt the tail.  A state from load()
@@ -306,38 +232,17 @@ class ViterbiDecoder:
                 f"{nbits} new > capacity {capacity} "
                 "(set_traceback_length before reset, or chainback "
                 "and reset between blocks)")
-        # Decoder contract (helpers/test_helpers.h:88-93): clamp to the
-        # soft range so every backend agrees on out-of-range inputs.
-        syms = torch.clamp(symbols.to(torch.int32), spec.soft_low,
-                           spec.soft_high).reshape(B, nbits, spec.R)
+        syms = route.clamp(symbols).reshape(B, nbits, spec.R)
         row_rots = state.row_rots
-        slot_rows = self._rotated or self._plane
-        if slot_rows and row_rots is None:
+        if route.slot_order and row_rots is None:
             # a state from a torch-backend decoder, built by hand, or a
             # plane checkpoint from before row_rots: its rows follow the
             # one-shot global schedule (row + 1) mod n
             row_rots = torch.as_tensor((np.arange(phys) + 1) % n,
                                        dtype=torch.int32, device=self.device)
-        if self._plane:
-            # the kernel writes the chunk's rows straight into the buffer
-            metrics, _, acc = plane.acs_plane(
-                spec, state.metrics.contiguous(), syms,
-                out=state.decisions, row0=cursor)
-        else:
-            rows = state.decisions[cursor:cursor + nbits]
-            if self._rotated or self._lane:
-                # the kernel writes the chunk's rows straight into the
-                # buffer (a carry built by hand may not be contiguous)
-                acs = rotated.acs_rotated if self._rotated else lane.acs_lane
-                metrics, packed, acc = acs(
-                    spec, state.metrics.contiguous(), syms.contiguous(),
-                    out=rows if rows.is_contiguous() else None)
-            else:
-                metrics, packed, acc = torch_core.acs_scan(
-                    spec, state.metrics, syms)
-            if packed.data_ptr() != rows.data_ptr():
-                rows.copy_(packed)
-        if slot_rows:
+        metrics, _, acc = route.acs(state.metrics, syms, out=state.decisions,
+                                    row0=cursor)
+        if route.slot_order:
             # row i of this chunk is slot-rotated by (i + 1) mod n
             row_rots[cursor:cursor + nbits] = (
                 torch.arange(1, nbits + 1, dtype=torch.int32,
@@ -387,37 +292,12 @@ class ViterbiDecoder:
         first_bit + n_bits) (n_bits defaults to the rest)."""
         if total_bits > self._traceback_length:
             raise ValueError("total_bits exceeds traceback_length")
-        if mode not in ("exact", "truncated"):
-            raise ValueError(f"unknown chainback mode {mode!r}")
-        if n_bits is None:
-            n_bits = total_bits - first_bit
-        if mode == "truncated":
-            if not self._plane:
-                raise ValueError(
-                    "mode='truncated' is for the big-state plane backend"
-                    " (small codes' exact chainback is already parallel"
-                    " across frames and faster than a truncated walk)")
-            bits = plane.chainback_plane_truncated(
-                self.spec, state.decisions, ends, total_bits,
-                state.row_rots, block, overlap)
-        # slot-order rows: stream each row's recorded rotation; a state
-        # without row_rots follows the one-shot schedule
-        elif self._plane:
-            bits = plane.chainback_plane(self.spec, state.decisions, ends,
-                                         total_bits, state.row_rots)
-        elif self._rotated or self._lane:
-            # these walks stop at the oldest row they read
-            return chainback_ops.chainback(
-                self.spec, state.decisions, ends, total_bits,
-                first_bit=first_bit, n_bits=n_bits,
-                slot_order=self._rotated,
-                rots=state.row_rots if self._rotated else None)
-        else:
-            bits = torch_core.chainback_scan(self.spec, state.decisions, ends,
-                                             total_bits)
-        if (first_bit, n_bits) == (0, total_bits):
-            return bits
-        return bits[:, first_bit:first_bit + n_bits].contiguous()
+        # slot-order rows: each row's recorded rotation; a state without
+        # row_rots follows the one-shot schedule
+        return self._route.chainback(
+            state.decisions, ends, total_bits, state.row_rots,
+            first_bit=first_bit, n_bits=n_bits, mode=mode, block=block,
+            overlap=overlap)
 
     def chainback_bytes(self, state: DecoderState, total_bits: int,
                         end_state: int = 0) -> np.ndarray:
@@ -447,13 +327,11 @@ class ViterbiDecoder:
         spec = self.spec
         symbols = torch.as_tensor(symbols, device=self.device)
         B = symbols.shape[0]
-        if torch_core.needs_big_state(spec) and not self._plane:
+        if torch_core.needs_big_state(spec) and self.backend == "torch":
             m0 = torch_core.initial_metrics(spec, B, 0, self.device)
             ends = torch.full((B,), end_state, dtype=torch.int32,
                               device=self.device)
-            # the same input clamp as update (decoder-wide contract)
-            syms = torch.clamp(symbols.to(torch.int32).reshape(B, -1, spec.R),
-                               spec.soft_low, spec.soft_high)
+            syms = self._route.clamp(symbols).reshape(B, -1, spec.R)
             bits, m, _, acc = bigstate.decode_big(spec, m0, syms, ends,
                                                   total_bits)
             return bits, m[end_state & (spec.S - 1), :], acc

@@ -12,6 +12,11 @@ hash of the source, every ``csrc/*.cuh`` header and the flags, and loaded
 with ``ctypes``.  Nothing
 here runs at import time: the CPU tests import every module on a machine
 without nvcc.
+
+Every kernel wrapper launches the same way: :func:`check_cuda` on its
+int32 inputs, :func:`kernel` for the launcher bound once, and
+:func:`launch`, which passes the device's current stream last, raises on
+the launcher's CUDA error and counts the launch.
 """
 
 from __future__ import annotations
@@ -26,7 +31,12 @@ import tempfile
 import time
 from pathlib import Path
 
-__all__ = ["load", "digest", "BUILD_DIR", "CSRC_DIR", "build_seconds"]
+import torch
+
+from .. import trace
+
+__all__ = ["load", "digest", "kernel", "launch", "check_cuda", "BUILD_DIR",
+           "CSRC_DIR", "build_seconds"]
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG / "csrc"
@@ -86,3 +96,36 @@ def load(name: str) -> ctypes.CDLL:
                 os.unlink(tmp)
         build_seconds[name] = time.perf_counter() - t0
     return ctypes.CDLL(str(lib))
+
+
+@functools.lru_cache(maxsize=None)
+def kernel(name: str, symbol: str, argtypes: tuple):
+    """``symbol`` of ``csrc/<name>.cu``'s library, bound once: it takes
+    ``argtypes`` and returns an int (a ``cudaError_t``)."""
+    fn = getattr(load(name), symbol)
+    fn.restype = ctypes.c_int
+    fn.argtypes = list(argtypes)
+    return fn
+
+
+def launch(fn, kernel_name: str, device: torch.device, *args) -> None:
+    """Call ``fn(*args, stream)`` on ``device``, ``stream`` its current CUDA
+    stream: a launcher that starts one kernel and returns its CUDA error.
+    Raises ``RuntimeError`` naming the kernel on an error; counts the
+    launch as ``launches.<kernel_name>``."""
+    with torch.cuda.device(device):
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{kernel_name} kernel launch failed: CUDA error "
+                           f"{err}")
+    trace.count("launches." + kernel_name)
+
+
+def check_cuda(**tensors) -> None:
+    """Raise ``ValueError`` unless every tensor given (None skips) is
+    contiguous int32, as the kernels read them."""
+    for name, x in tensors.items():
+        if x is not None and (x.dtype != torch.int32
+                              or not x.is_contiguous()):
+            raise ValueError(f"{name} must be contiguous int32 on CUDA, got "
+                             f"{x.dtype}, contiguous={x.is_contiguous()}")

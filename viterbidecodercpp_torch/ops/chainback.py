@@ -20,12 +20,12 @@ that loads the one word the state selects (wider rows).
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Optional
 
 import torch
 
 from .. import trace
+from . import _build
 from .torch_core import StaticSpec, _unpack_bit, needs_big_state
 
 __all__ = ["chainback", "chainback_ref", "walk_rows", "walk_rows_ref",
@@ -93,41 +93,24 @@ def _walk_ref(spec: StaticSpec, packed: torch.Tensor, start: torch.Tensor,
     return bits
 
 
-@functools.lru_cache(maxsize=None)
-def _launcher():
-    from . import _build
-
-    fn = _build.load("chainback").vdt_chainback
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + \
-        [ctypes.c_void_p]
-    return fn
+# vdt_chainback's parameters, the stream last
+_PARAMS = (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
 
 
 def _walk_cuda(spec: StaticSpec, packed: torch.Tensor, start: torch.Tensor,
                rows: int, slot_order: bool, rots, valid) -> torch.Tensor:
-    for name, x in (("packed", packed), ("start state", start),
-                    ("rots", rots), ("valid", valid)):
-        if x is not None and (x.dtype != torch.int32
-                              or not x.is_contiguous()):
-            raise ValueError(f"{name} must be contiguous int32 on CUDA, got "
-                             f"{x.dtype}, contiguous={x.is_contiguous()}")
+    _build.check_cuda(packed=packed, start=start, rots=rots, valid=valid)
     B = packed.shape[2]
     if B == 0:
         raise ValueError("empty batch")
-    fn = _launcher()
+    fn = _build.kernel("chainback", "vdt_chainback", _PARAMS)
     bits = torch.empty((rows, B), dtype=torch.uint8, device=packed.device)
-    with torch.cuda.device(packed.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(packed.data_ptr(), start.data_ptr(),
-                 rots.data_ptr() if rots is not None else None,
-                 valid.data_ptr() if valid is not None else None,
-                 bits.data_ptr(), rows, spec.W, B, spec.K, int(slot_order),
-                 int(walk_design(spec.W) == "tiled"), stream)
-    if err != 0:
-        raise RuntimeError(f"chainback kernel launch failed: CUDA error "
-                           f"{err}")
-    trace.count("launches.chainback")
+    _build.launch(fn, "chainback", packed.device, packed.data_ptr(),
+                  start.data_ptr(),
+                  rots.data_ptr() if rots is not None else None,
+                  valid.data_ptr() if valid is not None else None,
+                  bits.data_ptr(), rows, spec.W, B, spec.K, int(slot_order),
+                  int(walk_design(spec.W) == "tiled"))
     return bits
 
 

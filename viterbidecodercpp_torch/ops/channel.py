@@ -30,7 +30,7 @@ import functools
 
 import torch
 
-from .. import trace
+from . import _build
 from ..codes import CodeSpec
 
 __all__ = ["encode_awgn_quantize", "kernel_check", "MAX_K", "MAX_RATE"]
@@ -78,15 +78,8 @@ def _taps(G: tuple, device: torch.device) -> torch.Tensor:
                         dtype=torch.int32, device=device)
 
 
-@functools.lru_cache(maxsize=None)
-def _launcher():
-    from . import _build
-
-    fn = _build.load("awgn_channel").vdt_awgn_channel
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
-    return fn
+# vdt_awgn_channel's parameters, the stream last
+_PARAMS = (ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 6 + (ctypes.c_void_p,)
 
 
 def encode_awgn_quantize(code: CodeSpec, bits: torch.Tensor,
@@ -106,15 +99,10 @@ def encode_awgn_quantize(code: CodeSpec, bits: torch.Tensor,
                          "tensors on the device of the bits")
     B, N = bits.shape
     out = torch.empty(noise.shape, dtype=torch.int32, device=bits.device)
-    fn = _launcher()
-    with torch.cuda.device(bits.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(bits.data_ptr(), noise.data_ptr(), out.data_ptr(),
-                 _taps(code.G, bits.device).data_ptr(),
-                 *(v.data_ptr() for v in scalars), B, N, code.K, code.R,
-                 int(low), int(high), stream)
-    if err != 0:
-        raise RuntimeError(f"AWGN channel kernel launch failed: CUDA error "
-                           f"{err}")
-    trace.count("launches.awgn_channel")
+    fn = _build.kernel("awgn_channel", "vdt_awgn_channel", _PARAMS)
+    _build.launch(fn, "awgn_channel", bits.device, bits.data_ptr(),
+                  noise.data_ptr(), out.data_ptr(),
+                  _taps(code.G, bits.device).data_ptr(),
+                  *(v.data_ptr() for v in scalars), B, N, code.K, code.R,
+                  int(low), int(high))
     return out

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from .. import trace
+from . import _build
 from .torch_core import KERNEL_MAX_RATE, StaticSpec, acs_scan, rows_out
 
 __all__ = ["supports", "acs_lane", "acs_lane_ref", "MAX_LANE_KERNEL_STATES"]
@@ -83,16 +84,9 @@ def _lane_patterns(spec: StaticSpec) -> np.ndarray:
     return bits.sum(axis=0).astype(np.int32)
 
 
-@functools.lru_cache(maxsize=None)
-def _launcher():
-    from . import _build
-
-    fn = _build.load("lane_acs").vdt_lane_acs
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p] + [ctypes.c_int] * 6
-                   + [ctypes.c_void_p])
-    return fn
+# vdt_lane_acs's parameters, the stream last
+_PARAMS = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 4
+             + (ctypes.c_void_p,) + (ctypes.c_int,) * 6 + (ctypes.c_void_p,))
 
 
 def acs_lane_ref(spec: StaticSpec, metrics: torch.Tensor,
@@ -122,30 +116,21 @@ def acs_lane(spec: StaticSpec, metrics: torch.Tensor, symbols: torch.Tensor,
             return acs_lane_ref(spec, metrics, symbols, out)
         if metrics.device.type != "cuda":
             raise ValueError(f"unsupported device {metrics.device}")
-        for name, x in (("metrics", metrics), ("symbols", symbols)):
-            if x.dtype != torch.int32 or not x.is_contiguous():
-                raise ValueError(f"{name} must be contiguous int32 on CUDA, "
-                                 f"got {x.dtype}, "
-                                 f"contiguous={x.is_contiguous()}")
+        _build.check_cuda(metrics=metrics, symbols=symbols)
         if spec.R > KERNEL_MAX_RATE:
             raise ValueError(f"the CUDA lane ACS takes R <= "
                              f"{KERNEL_MAX_RATE}, got R={spec.R}")
         if B == 0:
             raise ValueError("empty batch")
         packed = rows_out(spec, metrics, T, out)
-        fn = _launcher()
+        fn = _build.kernel("lane_acs", "vdt_lane_acs", _PARAMS)
         pat = _lane_patterns(spec)
         m_out = torch.empty_like(metrics)
         acc = torch.empty(B, dtype=torch.int32, device=metrics.device)
-        with torch.cuda.device(metrics.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = fn(metrics.data_ptr(), symbols.data_ptr(),
-                     m_out.data_ptr(), packed.data_ptr(), acc.data_ptr(), B,
-                     T, spec.K, spec.R, pat.ctypes.data, spec.soft_high,
-                     spec.soft_low, spec.max_error, spec.metric_max,
-                     spec.renorm_threshold, int(spec.saturating), stream)
-        if err != 0:
-            raise RuntimeError(f"lane ACS kernel launch failed: CUDA error "
-                               f"{err}")
-        trace.count("launches.lane_acs")
+        _build.launch(fn, "lane_acs", metrics.device, metrics.data_ptr(),
+                      symbols.data_ptr(), m_out.data_ptr(), packed.data_ptr(),
+                      acc.data_ptr(), B, T, spec.K, spec.R, pat.ctypes.data,
+                      spec.soft_high, spec.soft_low, spec.max_error,
+                      spec.metric_max, spec.renorm_threshold,
+                      int(spec.saturating))
         return m_out, packed, acc

@@ -49,7 +49,7 @@ import numpy as np
 import torch
 
 from .. import trace
-from . import rotated
+from . import _build, rotated
 from .torch_core import (KERNEL_MAX_RATE, MAX_LANE_STATES, StaticSpec,
                          spec_cache, symmetric_amplitude, wrap_int32)
 
@@ -76,7 +76,19 @@ GLOBAL_TILE = 1 << 13
 # The kernels the public wrappers launch, each launch counted as the
 # counter ``launches.<kernel>`` of ``viterbidecodercpp_torch.trace``
 KERNELS = ("plane_acs", "plane_acs_global", "plane_walk", "plane_walk_trunc")
-_COUNTERS = {k: "launches." + k for k in KERNELS}
+# each launcher's parameters, the stream last
+_PARAMS = {
+    "plane_acs": ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 4
+                  + (ctypes.c_void_p,) * 2 + (ctypes.c_int,) * 9
+                  + (ctypes.c_void_p,)),
+    "plane_acs_global": ((ctypes.c_void_p,) * 7 + (ctypes.c_int,) * 4
+                         + (ctypes.c_void_p,) + (ctypes.c_int,) * 11
+                         + (ctypes.c_void_p,)),
+    "plane_walk": (ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 4 + (
+        ctypes.c_void_p,),
+    "plane_walk_trunc": (ctypes.c_void_p,) * 4 + (ctypes.c_int,) * 6 + (
+        ctypes.c_void_p,),
+}
 # cudaOccupancyMaxActiveClusters of each cluster configuration the ACS has
 # launched, keyed (device index, K, R, saturating); queried before its
 # first launch
@@ -120,18 +132,9 @@ def _check_spec(spec: StaticSpec) -> None:
                          f"got S={spec.S}")
 
 
-def _launch(name: str, symbol: str, argtypes, *args) -> None:
-    """Call ``symbol``, which launches one kernel, and count it as
-    ``launches.<name>``."""
-    from . import _build
-
-    fn = getattr(_build.load(name), symbol)
-    fn.restype = ctypes.c_int
-    fn.argtypes = argtypes
-    err = fn(*args)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    trace.count(_COUNTERS[name])
+def _kernel(name: str):
+    """The launcher of kernel ``name``, ``vdt_<name>``, bound once."""
+    return _build.kernel(name, "vdt_" + name, _PARAMS[name])
 
 
 def _check_clusters(spec: StaticSpec, dev: torch.device) -> None:
@@ -141,11 +144,8 @@ def _check_clusters(spec: StaticSpec, dev: torch.device) -> None:
     key = (dev.index, spec.K, spec.R, bool(spec.saturating))
     if spec.S <= 1 << 15 or key in ACTIVE_CLUSTERS:
         return
-    from . import _build
-
-    fn = _build.load("plane_acs").vdt_plane_acs_clusters
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
+    fn = _build.kernel("plane_acs", "vdt_plane_acs_clusters",
+                       (ctypes.c_int,) * 3 + (ctypes.c_void_p,))
     out = ctypes.c_int(0)
     with torch.cuda.device(dev):
         err = fn(spec.K, spec.R, int(spec.saturating), ctypes.byref(out))
@@ -192,11 +192,8 @@ def _check_global(spec: StaticSpec, dev: torch.device,
     key = (dev.index, spec.K, spec.R, bool(spec.saturating))
     if key in RESIDENT_BLOCKS:
         return global_grid(spec.S, B, RESIDENT_BLOCKS[key])
-    from . import _build
-
-    fn = _build.load("plane_acs_global").vdt_plane_acs_global_resident
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+    fn = _build.kernel("plane_acs_global", "vdt_plane_acs_global_resident",
+                       (ctypes.c_int,) * 2 + (ctypes.c_void_p,) * 2)
     per_sm, sms = ctypes.c_int(0), ctypes.c_int(0)
     with torch.cuda.device(dev):
         err = fn(spec.R, int(spec.saturating), ctypes.byref(per_sm),
@@ -214,14 +211,6 @@ def _check_global(spec: StaticSpec, dev: torch.device,
     return grid
 
 
-def _check_cuda(**tensors) -> None:
-    for name, x in tensors.items():
-        if x is not None and (x.dtype != torch.int32
-                              or not x.is_contiguous()):
-            raise ValueError(f"{name} must be contiguous int32 on CUDA, got "
-                             f"{x.dtype}, contiguous={x.is_contiguous()}")
-
-
 def _device_of(*tensors) -> torch.device:
     dev = tensors[0].device
     for x in tensors[1:]:
@@ -230,11 +219,6 @@ def _device_of(*tensors) -> torch.device:
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {dev}")
     return dev
-
-
-def _stream(dev: torch.device) -> int:
-    with torch.cuda.device(dev):
-        return torch.cuda.current_stream().cuda_stream
 
 
 # -- plane ACS -------------------------------------------------------------
@@ -353,7 +337,7 @@ def _acs_plane(spec, metrics, symbols, phase0, out, row0):
     phase0 = int(phase0) % (spec.K - 1)
     if metrics.device.type == "cpu":
         return _acs_plain(spec, metrics, symbols, phase0, out, row0)
-    _check_cuda(metrics=metrics, out=out)
+    _build.check_cuda(metrics=metrics, out=out)
     if spec.R > KERNEL_MAX_RATE:
         raise ValueError(f"the CUDA plane ACS takes R <= {KERNEL_MAX_RATE}, "
                          f"got R={spec.R}")
@@ -366,31 +350,27 @@ def _acs_plane(spec, metrics, symbols, phase0, out, row0):
     acc = torch.empty(B, dtype=torch.int32, device=dev)
     tail = (spec.soft_high, spec.soft_low, spec.max_error, spec.metric_max,
             spec.renorm_threshold, int(spec.saturating), phase0,
-            out.shape[1], row0, _stream(dev))
+            out.shape[1], row0)
     if acs_kernel(spec) == "plane_acs":
         _check_clusters(spec, dev)
-        _launch("plane_acs", "vdt_plane_acs",
-                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                + [ctypes.c_void_p] * 2
-                + [ctypes.c_int] * 9 + [ctypes.c_void_p],
-                metrics.data_ptr(), symbols.data_ptr(), m_out.data_ptr(),
-                out.data_ptr(), acc.data_ptr(), B, T, spec.K, spec.R,
-                ctypes.cast(g, ctypes.c_void_p),
-                _plane_patterns(spec).ctypes.data, *tail)
+        _build.launch(_kernel("plane_acs"), "plane_acs", dev,
+                      metrics.data_ptr(), symbols.data_ptr(),
+                      m_out.data_ptr(), out.data_ptr(), acc.data_ptr(), B, T,
+                      spec.K, spec.R, ctypes.cast(g, ctypes.c_void_p),
+                      _plane_patterns(spec).ctypes.data, *tail)
     else:
         grid, per_block = _check_global(spec, dev, B)
         # the two metric buffers and the renorm cells (mins and slot-0
         # values of three steps, the totals)
         scratch = torch.empty(2 * B * spec.S + 7 * B, dtype=torch.int32,
                               device=dev)
-        _launch("plane_acs_global", "vdt_plane_acs_global",
-                [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-                + [ctypes.c_void_p] + [ctypes.c_int] * 9
-                + [ctypes.c_void_p] + [ctypes.c_int] * 2,
-                metrics.data_ptr(), symbols.data_ptr(), m_out.data_ptr(),
-                out.data_ptr(), acc.data_ptr(), scratch.data_ptr(),
-                _device_patterns(spec, dev).data_ptr(), B, T, spec.K, spec.R,
-                ctypes.cast(g, ctypes.c_void_p), *tail, grid, per_block)
+        _build.launch(_kernel("plane_acs_global"), "plane_acs_global", dev,
+                      metrics.data_ptr(), symbols.data_ptr(),
+                      m_out.data_ptr(), out.data_ptr(), acc.data_ptr(),
+                      scratch.data_ptr(),
+                      _device_patterns(spec, dev).data_ptr(), B, T, spec.K,
+                      spec.R, ctypes.cast(g, ctypes.c_void_p), *tail, grid,
+                      per_block)
     return m_out, out[:, row0:row0 + T], acc
 
 
@@ -609,17 +589,16 @@ def _walk(spec, packed, start, rows, rots, valid, plain):
     dev = _walk_args(spec, packed, start, rots, valid, rows)
     if plain or dev.type == "cpu":
         return _walk_plain(spec, packed, start, rows, rots, valid)
-    _check_cuda(packed=packed, start=start, rots=rots, valid=valid)
+    _build.check_cuda(packed=packed, start=start, rots=rots, valid=valid)
     B = packed.shape[0]
     if B == 0:
         raise ValueError("empty batch")
     bits = torch.empty((B, rows), dtype=torch.uint8, device=dev)
-    _launch("plane_walk", "vdt_plane_walk",
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p],
-            packed.data_ptr(), start.data_ptr(),
-            rots.data_ptr() if rots is not None else None,
-            valid.data_ptr() if valid is not None else None,
-            bits.data_ptr(), rows, packed.shape[1], B, spec.K, _stream(dev))
+    _build.launch(_kernel("plane_walk"), "plane_walk", dev, packed.data_ptr(),
+                  start.data_ptr(),
+                  rots.data_ptr() if rots is not None else None,
+                  valid.data_ptr() if valid is not None else None,
+                  bits.data_ptr(), rows, packed.shape[1], B, spec.K)
     return bits
 
 
@@ -753,17 +732,16 @@ def chainback_plane_truncated(spec: StaticSpec, packed: torch.Tensor,
         if dev.type == "cpu":
             return _trunc_plain(spec, packed, end_state, total_bits, rots,
                                 block, overlap)
-        _check_cuda(packed=packed, end_state=end_state, rots=rots)
+        _build.check_cuda(packed=packed, end_state=end_state, rots=rots)
         B = packed.shape[0]
         if B == 0:
             raise ValueError("empty batch")
         bits = torch.empty((B, total_bits), dtype=torch.uint8, device=dev)
-        _launch("plane_walk_trunc", "vdt_plane_walk_trunc",
-                [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
-                packed.data_ptr(), end_state.data_ptr(),
-                rots.data_ptr() if rots is not None else None, bits.data_ptr(),
-                B, packed.shape[1], spec.K, total_bits, block, overlap,
-                _stream(dev))
+        _build.launch(_kernel("plane_walk_trunc"), "plane_walk_trunc", dev,
+                      packed.data_ptr(), end_state.data_ptr(),
+                      rots.data_ptr() if rots is not None else None,
+                      bits.data_ptr(), B, packed.shape[1], spec.K, total_bits,
+                      block, overlap)
         return bits
 
 

@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from .. import trace
+from . import _build
 from .torch_core import (KERNEL_MAX_RATE, MAX_LANE_STATES, StaticSpec,
                          pack_bits, rows_out, spec_cache)
 
@@ -259,16 +260,10 @@ def _launch_tables(spec: StaticSpec) -> tuple:
     return g, tables[0].ctypes.data, tables[1].ctypes.data, tables
 
 
-@functools.lru_cache(maxsize=None)
-def _launcher():
-    from . import _build
-
-    fn = _build.load("rotated_acs").vdt_rotated_acs
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 4
-                   + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6
-                   + [ctypes.c_void_p])
-    return fn
+# vdt_rotated_acs's parameters, the stream last
+_PARAMS = ((ctypes.c_void_p,) * 5 + (ctypes.c_int,) * 4
+             + (ctypes.c_void_p,) * 3 + (ctypes.c_int,) * 6
+             + (ctypes.c_void_p,))
 
 
 def acs_rotated(spec: StaticSpec, metrics: torch.Tensor,
@@ -286,31 +281,22 @@ def acs_rotated(spec: StaticSpec, metrics: torch.Tensor,
             return acs_rotated_ref(spec, metrics, symbols, out)
         if metrics.device.type != "cuda":
             raise ValueError(f"unsupported device {metrics.device}")
-        for name, x in (("metrics", metrics), ("symbols", symbols)):
-            if x.dtype != torch.int32 or not x.is_contiguous():
-                raise ValueError(f"{name} must be contiguous int32 on CUDA, "
-                                 f"got {x.dtype}, "
-                                 f"contiguous={x.is_contiguous()}")
+        _build.check_cuda(metrics=metrics, symbols=symbols)
         if spec.R > KERNEL_MAX_RATE:
             raise ValueError(f"the CUDA rotated ACS takes R <= "
                              f"{KERNEL_MAX_RATE}, got R={spec.R}")
         if B == 0:
             raise ValueError("empty batch")
-        fn = _launcher()
+        fn = _build.kernel("rotated_acs", "vdt_rotated_acs", _PARAMS)
         g, apat, cpat, _ = _launch_tables(spec)
         m_out = torch.empty_like(metrics)
         packed = rows_out(spec, metrics, T, out)
         acc = torch.empty(B, dtype=torch.int32, device=metrics.device)
-        with torch.cuda.device(metrics.device):
-            stream = torch.cuda.current_stream().cuda_stream
-            err = fn(metrics.data_ptr(), symbols.data_ptr(),
-                     m_out.data_ptr(), packed.data_ptr(), acc.data_ptr(), B,
-                     T, spec.K, spec.R, ctypes.cast(g, ctypes.c_void_p),
-                     apat, cpat, spec.soft_high, spec.soft_low,
-                     spec.max_error, spec.metric_max, spec.renorm_threshold,
-                     int(spec.saturating), stream)
-        if err != 0:
-            raise RuntimeError(f"rotated ACS kernel launch failed: CUDA "
-                               f"error {err}")
-        trace.count("launches.rotated_acs")
+        _build.launch(fn, "rotated_acs", metrics.device, metrics.data_ptr(),
+                      symbols.data_ptr(), m_out.data_ptr(), packed.data_ptr(),
+                      acc.data_ptr(), B, T, spec.K, spec.R,
+                      ctypes.cast(g, ctypes.c_void_p), apat, cpat,
+                      spec.soft_high, spec.soft_low, spec.max_error,
+                      spec.metric_max, spec.renorm_threshold,
+                      int(spec.saturating))
         return m_out, packed, acc

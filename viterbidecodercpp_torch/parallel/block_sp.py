@@ -19,7 +19,7 @@ Boundary semantics are the JAX package's:
     rows from state 0 and discards the halo bits.
 
 Routes, as the JAX package picks them with ``use_pallas`` (here by
-``decoder.select_backend``):
+``ops/route.py``):
   * plane (S > 4096): plane ACS (``phase0=0``) over the extended
     tile, plane walk with ``rots`` and, on the last tile, ``valid``;
   * rotated (64 <= S <= 4096): rotated ACS, slot-order walk with ``rots``
@@ -46,8 +46,8 @@ import torch
 import torch.distributed as dist
 
 from .. import trace
-from ..decoder import resolve_device, select_backend
-from ..ops import chainback, lane, plane, rotated, torch_core
+from ..ops import torch_core
+from ..ops.route import resolve_device, route_for
 from ..ops.torch_core import StaticSpec
 from .mesh import all_reduce, axis_size, shift
 
@@ -78,34 +78,6 @@ class SpResult(tuple):
     @property
     def halo_mismatches(self) -> torch.Tensor:
         return self[1]
-
-
-def _acs(route: str, plain: bool, spec: StaticSpec, metrics, symbols):
-    """Decision rows of one ACS call: (T, W, B) on the rotated, lane and
-    torch routes, (B, T, WRr, 128) on the plane route."""
-    if route == "plane":
-        fn = plane.acs_plane_ref if plain else plane.acs_plane
-    elif route == "rotated":
-        fn = rotated.acs_rotated_ref if plain else rotated.acs_rotated
-    elif route == "lane":
-        fn = lane.acs_lane_ref if plain else lane.acs_lane
-    else:
-        fn = torch_core.acs_scan
-    return fn(spec, metrics, symbols)[1]
-
-
-def _walk(route: str, plain: bool, spec: StaticSpec, rows, start, rots,
-          valid) -> torch.Tensor:
-    """(B, N) uint8 path bits of a walk over N decision rows."""
-    if route == "plane":
-        fn = plane.walk_plane_frames_ref if plain else plane.walk_plane_frames
-        return fn(spec, rows, start, rots=rots, valid=valid)
-    fn = chainback.walk_rows_ref if plain or route == "torch" \
-        else chainback.walk_rows
-    slot = route == "rotated"
-    bits = fn(spec, rows, start, slot_order=slot,
-              rots=rots if slot else None, valid=valid)
-    return bits.t().contiguous()
 
 
 def decode_stream_sp(spec: StaticSpec, mesh, symbols_tile, *, overlap: int,
@@ -156,15 +128,12 @@ def decode_stream_sp(spec: StaticSpec, mesh, symbols_tile, *, overlap: int,
 def _decode(spec, mesh, symbols_tile, overlap, end_state, total_rows,
             backend, plain, device, timings) -> SpResult:
     dev = resolve_device(device)
-    route = select_backend(spec, dev, backend)
+    route = route_for(spec, dev, backend, plain)
     sym = torch.as_tensor(symbols_tile, device=dev)
     if sym.dim() != 3 or sym.shape[2] != spec.R:
         raise ValueError(f"symbols_tile must be (B, L, R={spec.R}), got "
                          f"{tuple(sym.shape)}")
-    # the decoder's input contract: clamped to the soft range, so every
-    # route agrees on symbols outside it
-    sym = torch.clamp(sym.to(torch.int32), spec.soft_low,
-                      spec.soft_high).contiguous()
+    sym = route.clamp(sym).contiguous()
     tgroup = mesh.get_group("time")
     ntime, idx = axis_size(mesh, "time"), mesh.get_local_rank("time")
     names = mesh.mesh_dim_names
@@ -195,7 +164,7 @@ def _decode(spec, mesh, symbols_tile, overlap, end_state, total_rows,
                          "overlap region")
     n = spec.K - 1
     J = min(O, n)
-    plane_route = route == "plane"
+    axis = route.time_axis
 
     # -- ACS: rank 0 from the reset metrics over its own rows; the others
     # from uniform metrics over the left neighbour's last O rows + tile
@@ -204,37 +173,35 @@ def _decode(spec, mesh, symbols_tile, overlap, end_state, total_rows,
     with _span(timings, "tile", dev, "acs"):
         if idx == 0:
             m0 = torch_core.initial_metrics(spec, Bl, 0, dev)
-            own = _acs(route, plain, spec, m0, sym)
+            own = route.acs(m0, sym)[1]
         else:
             m0 = torch.full((spec.S, Bl), spec.init_other, dtype=torch.int32,
                             device=dev)
-            ext = _acs(route, plain, spec, m0,
-                       torch.cat([halo_syms, sym], dim=1))
-            own = ext[:, O:] if plane_route else ext[O:]
+            ext = route.acs(m0, torch.cat([halo_syms, sym], dim=1))[1]
+            own = ext.narrow(axis, O, L)
         base = 0 if idx == 0 else O
         rots_own = (torch.arange(L, device=dev, dtype=torch.int32)
                     + base + 1) % n
 
     # -- walk: the others' first O own rows warm each tile down
     with _span(timings, "exchange", dev, "halo_dec"):
-        head = own[:, :O] if plane_route else own[:O]
-        halo_dec = shift(head.contiguous(), tgroup, -1)
+        halo_dec = shift(own.narrow(axis, 0, O).contiguous(), tgroup, -1)
     with _span(timings, "tile", dev, "walk"):
         if idx == ntime - 1:
             grow = torch.arange(L, device=dev) + idx * L
             valid = (grow < total_rows).to(torch.int32)
             start = torch.full((Bl,), end_state, dtype=torch.int32,
                                device=dev)
-            bits = _walk(route, plain, spec, own.contiguous(), start,
-                         rots_own, valid)
+            bits = route.walk(own.contiguous(), start, rots_own,
+                              valid).contiguous()
             halo_pred = None
         else:
             rots_halo = (torch.arange(O, device=dev, dtype=torch.int32)
                          + O + 1) % n
-            ext_dec = torch.cat([own, halo_dec], dim=1 if plane_route else 0)
+            ext_dec = torch.cat([own, halo_dec], dim=axis)
             start = torch.zeros(Bl, dtype=torch.int32, device=dev)
-            walked = _walk(route, plain, spec, ext_dec, start,
-                           torch.cat([rots_own, rots_halo]), None)
+            walked = route.walk(ext_dec, start,
+                                torch.cat([rots_own, rots_halo])).contiguous()
             bits, halo_pred = walked[:, :L], walked[:, L:L + J]
 
     # -- diagnostic: each owner ships its oldest J bits left

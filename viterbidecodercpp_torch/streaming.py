@@ -9,7 +9,7 @@ the state-order metrics) and commits the oldest ``chunk`` bits: the
 truncated-traceback Viterbi decoder.  With ``window`` >= ~30 K the output
 equals the exact decode on clean-enough channels.
 
-Routes are the decoder's (``decoder.select_backend``): ``"rotated"``
+Routes are the decoder's (``ops/route.py``): ``"rotated"``
 (64 <= S <= 4096; rotated ACS, slot-order ring, slot-order walk),
 ``"plane"`` (S > 4096; plane ACS, (B, window, W/128, 128) ring,
 frame-major plane walk), ``"lane"`` (S <= 32; lane ACS, state-order ring,
@@ -39,8 +39,8 @@ import torch
 from . import trace
 from .codes import CodeSpec
 from .config import DecoderConfig, DecodeType, get_decode_config
-from .decoder import select_backend
-from .ops import chainback, lane, plane, rotated, torch_core
+from .ops import torch_core
+from .ops.route import route_for
 
 __all__ = ["StreamingState", "StreamingDecoder"]
 
@@ -152,18 +152,13 @@ class StreamingDecoder:
         self.window = int(window)
         self.chunk = int(chunk)
         self.device = torch.device(device)
-        if self.device.type not in ("cpu", "cuda"):
-            raise ValueError(f"unsupported device {self.device}")
-        self.backend = select_backend(self.spec, self.device, backend)
-        self.plain = bool(plain)
+        self._route = route_for(self.spec, self.device, backend, plain)
+        self.backend = self._route.name
+        self.plain = self._route.plain
         self._rots = None
         # free slots by batch size
         self._free: Dict[int, List[_Slot]] = {}
-        self._graphed = (self.device.type == "cuda" and not self.plain
-                         and self.backend in ("rotated", "lane", "plane")
-                         and not (self.backend == "plane"
-                                  and plane.acs_kernel(self.spec)
-                                  == "plane_acs_global"))
+        self._graphed = self._route.graphable
 
     def _ring_rots(self) -> torch.Tensor:
         """(window,) int32 walk rotations of the ring's rows, made on the
@@ -176,9 +171,7 @@ class StreamingDecoder:
         return self._rots
 
     def _ring_shape(self, batch: int) -> tuple:
-        if self.backend == "plane":
-            return (batch, self.window, self.spec.W // plane.COLS, plane.COLS)
-        return (self.window, self.spec.W, batch)
+        return self._route.rows_shape(batch, self.window)
 
     def reset(self, batch: int, starting_state: int = 0) -> StreamingState:
         return StreamingState(
@@ -306,43 +299,18 @@ class StreamingDecoder:
         rows, the best states, the walk and the row count.  Returns the
         push's (B, chunk) bits: a view of the walk's oldest ``chunk``
         rows."""
-        spec, chunk, plain, route = (self.spec, self.chunk, self.plain,
-                                     self.backend)
+        route, chunk = self._route, self.chunk
         B = slot.metrics.shape[1]
         keep = self.window - chunk
         old, ring = slot.rings[src], slot.rings[1 - src]
-        # the decoder's input clamp (helpers/test_helpers.h:88-93)
-        syms = torch.clamp(slot.symbols, spec.soft_low,
-                           spec.soft_high).reshape(B, chunk, spec.R)
-        if route == "plane":
-            ring[:, :keep].copy_(old[:, chunk:])
-            acs = plane.acs_plane_ref if plain else plane.acs_plane
-            metrics, _, _ = acs(spec, slot.metrics, syms, out=ring,
-                                row0=keep)
-        else:
-            ring[:keep].copy_(old[chunk:])
-            if route == "torch":
-                metrics, packed, _ = torch_core.acs_scan(spec, slot.metrics,
-                                                         syms)
-                ring[keep:].copy_(packed)
-            else:
-                acs = {"rotated": (rotated.acs_rotated,
-                                   rotated.acs_rotated_ref),
-                       "lane": (lane.acs_lane, lane.acs_lane_ref),
-                       }[route][plain]
-                metrics, _, _ = acs(spec, slot.metrics, syms, ring[keep:])
+        axis = route.time_axis
+        syms = route.clamp(slot.symbols).reshape(B, chunk, self.spec.R)
+        ring.narrow(axis, 0, keep).copy_(old.narrow(axis, chunk, keep))
+        metrics, _, _ = route.acs(slot.metrics, syms, out=ring, row0=keep)
         # torch.argmin takes the first minimum, as jnp.argmin does
         best = torch.argmin(metrics, dim=0).to(torch.int32)
-        rots = self._ring_rots() if route in ("rotated", "plane") else None
-        if route == "plane":
-            walk = (plane.walk_plane_frames_ref if plain
-                    else plane.walk_plane_frames)
-            bits = walk(spec, ring, best, rots=rots)[:, :chunk]
-        else:
-            walk = (chainback.walk_rows_ref if plain or route == "torch"
-                    else chainback.walk_rows)
-            bits = walk(spec, ring, best, slot_order=rots is not None,
-                        rots=rots)[:chunk].t()
+        rots = self._ring_rots() if route.slot_order else None
+        bits = route.walk(ring, best, rots=rots)[:, :chunk]
         slot.metrics.copy_(metrics)
         slot.rows_seen.add_(chunk)
         return bits
